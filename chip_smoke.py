@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only   (K1-K5 checks and edge cases;
+                                            no result line)
 
 Builds the port's CUDA kernels (K1 closest hit + attributes, K2 any-hit,
 K3 à-trous chain, K4 bilateral blur, K5 DDGI irradiance sampler, K6 dense
@@ -15,7 +17,10 @@ the shadow plane (K3, C=1), the reflections' temporal plane (K3, C=3) and
 the HDR frame (K3, C=3); the AO plane (K4); the probe bounce, the screen
 sample and the reflections' merged DDGI evaluation (K5); and, recorded
 from the frame with ``tracer_method="flash_dense"``, the same ray sites
-for K6 and K6′, with K6 also held against K1. Then it renders the bench
+for K6 and K6′, with K6 also held against K1. K3 and K1/K2 are also held
+against their plain versions on edge cases (images smaller than a tile or
+its halo, every option of the chain, ray batches that are all dead, one ray
+or no multiple of a warp). Then it renders the bench
 frame through ``HybridRenderer`` with every kernel counting its launches,
 renders the frame with DDGI and reflections off and the dense frame, holds
 a small moving-camera run on the card against the plain path on the CPU,
@@ -23,10 +28,13 @@ times the bench frame pass by pass and under torch.profiler, and runs the
 bench's fidelity section (gi_test at 256x256: 32 hybrid frames against a
 96-spp path-traced GT) through both tracers.
 
-Prints the card's name and power limit, the BVH builder, each kernel's time
-beside its plain version's and its bound (the least time the H100 could
-take for the same work: the bytes it must move at 3.35 TB/s or its fp32
-operations at 67 TFLOP/s, whichever is longer), ms/frame of the three
+Prints the card's name and power limit, which code built the BVH, the registers and
+shared memory of K1-K3, each kernel's time (CUDA events around calls
+launched one by one into an idle card; for K1-K5 also around calls queued
+behind a short spin of the card, so that no wait for the host is in it)
+beside its plain version's and its bound (the least time the H100 could take for the same
+work: the bytes it must move at 3.35 TB/s or its fp32 operations at 67
+TFLOP/s, whichever is longer), ms/frame of the three
 frames, per-pass times, the device's busy share and launches per frame,
 both fidelity reports, one JSON line with the kernel table, and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -59,7 +67,12 @@ EYE_STEP = 0.2  # one camera move: the eye slides along x
 K1_MIN_AGREE = 0.9999
 K1_TOL = 1e-5
 K2_MIN_AGREE = 0.9999
-STENCIL_TOL = 1e-5
+STENCIL_TOL = 1e-5  # K4: rounds like its plain version
+# K3 folds its three edge-stopping weights into one approximate exp2 and is
+# built with FMA contraction: each output within 1e-4 of the plain
+# version's, colour relative to the plane's maximum where that exceeds 1
+# (the HDR frame)
+K3_TOL = 1e-4
 K5_TOL = 1e-5
 # card (kernels) vs CPU (plain) over three moving-camera frames: a ray that
 # grazes an edge can hit the other triangle when positions differ by an ulp
@@ -112,12 +125,19 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of `fn` over `reps` calls after one warm-up call."""
+def cuda_ms(fn, reps, queued=False):
+    """Mean time of `fn` between two CUDA events over `reps` calls after
+    one warm-up call. The host launches into an idle card, so a call that
+    is shorter than its own enqueue reads the wrapper's host time, which
+    varies with the host. With `queued` the card first spins ~10 ms, the
+    calls queue up behind it, and the time holds no wait for the host: the
+    kernels' own time."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -325,7 +345,8 @@ def check_k1(ts, rays, label, name):
               for f in ("t", "u", "v"))
     print(f"[{label}] K1 closest+attrs, {name}: {o.shape[0]} rays, "
           f"{(ref.tri_id >= 0).sum().item()} hits, tri_id agree {share:.6f}, "
-          f"max |d(t,u,v)| {err:.3g}")
+          f"max |d(t,u,v)| {err:.3g}; the walk: {stats['nodes'] / o.shape[0]:.1f} box and "
+          f"{stats['tris'] / o.shape[0]:.1f} triangle tests a ray")
     check(share >= K1_MIN_AGREE, f"K1 {name}: tri_id agrees on {share} of rays")
     for f in ("t", "u", "v"):
         torch.testing.assert_close(getattr(hit, f)[agree], getattr(ref, f)[agree],
@@ -350,16 +371,27 @@ def check_k2(ts, rays, label, name):
     return err, plain_ms, walk_bound(ts, o.shape[0], stats, any_hit=True)
 
 
+def k3_errors(got, ref):
+    """Max abs error of (final, feedback, variance), the two colours
+    relative to max(1, the plain plane's maximum)."""
+    errs = []
+    for i, (g, p) in enumerate(zip(got, ref)):
+        check(g.shape == p.shape, f"K3: output {i} has shape {tuple(g.shape)}")
+        scale = max(1.0, p.abs().max().item()) if i < 2 and p.numel() else 1.0
+        errs.append((g - p).abs().max().item() / scale if p.numel() else 0.0)
+    return errs
+
+
 def check_k3(args, kw, label, name):
     from hybrid_rendering_torch.ops import stencil
 
     got = stencil.atrous_chain(*args, **kw)
     ref, plain_ms = wall_ms(lambda: stencil.atrous_chain_plain(*args, **kw))
-    err = max((g - p).abs().max().item() for g, p in zip(got, ref))
+    errs = k3_errors(got, ref)
     print(f"[{label}] K3 à-trous x{len(kw['steps'])}, {name}, {tuple(args[0].shape)}: "
-          f"max |d| {err:.3g}")
-    check(err <= STENCIL_TOL, f"K3 {name}: max abs difference {err}")
-    return err, plain_ms
+          f"max |d| final {errs[0]:.3g}, feedback {errs[1]:.3g}, variance {errs[2]:.3g}")
+    check(max(errs) <= K3_TOL, f"K3 {name}: max abs difference {errs}")
+    return max(errs), plain_ms
 
 
 def check_k5(r, call, label, name):
@@ -382,6 +414,16 @@ def check_k5(r, call, label, name):
     return err, plain_ms, (lambda: ddgi_sample.sample_irradiance(*args))
 
 
+def time_site(kernel, site, fn, reps, plain_ms, bnd):
+    """Time one call site, print it beside its plain version and bound,
+    and return (ms, plain_ms, bound_ms, bound_by)."""
+    ms = cuda_ms(fn, reps)
+    queued = cuda_ms(fn, reps, queued=True)
+    print(f"{kernel} {site}: kernel {ms:.3f} ms ({queued:.3f} ms queued behind a busy card), "
+          f"plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    return (ms, plain_ms) + bnd
+
+
 def check_kernels(r, wf, label, timing):
     """Each kernel against its plain version on this frame's inputs.
     Returns ({kernel: max abs error over its call sites}, {kernel: (ms,
@@ -393,57 +435,42 @@ def check_kernels(r, wf, label, timing):
     out = {}
     errs = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5")}
 
-    o, d, tm = wf["primary"]
-    err, plain_ms, bnd = check_k1(ts, wf["primary"], label, "primary")
-    errs["K1"] = err
-    if timing:
-        out["K1"] = (cuda_ms(lambda: bvh.closest_hit_attrs(ts, o, d, tm), 10), plain_ms) + bnd
-    for name, rays in wf["k1_more"].items():
+    # the first site of each kernel is its largest on the main path
+    for name, rays in dict(primary=wf["primary"], **wf["k1_more"]).items():
         err, plain_ms, bnd = check_k1(ts, rays, label, name)
         errs["K1"] = max(errs["K1"], err)
         if timing:
-            ms = cuda_ms(lambda: bvh.closest_hit_attrs(ts, *rays), 10)
-            print(f"K1 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                  f"bound {bnd[0]:.4f} ms ({bnd[1]})")
-
-    o, d, tm = wf["vis_rays"]
-    err, plain_ms, bnd = check_k2(ts, wf["vis_rays"], label, "shadow + AO")
-    errs["K2"] = err
-    if timing:
-        out["K2"] = (cuda_ms(lambda: bvh.visibility(ts, o, d, tm), 10), plain_ms) + bnd
-    for name, rays in wf["k2_more"].items():
+            timed = time_site("K1", name, lambda: bvh.closest_hit_attrs(ts, *rays), 10,
+                              plain_ms, bnd)
+            out.setdefault("K1", timed)
+    for name, rays in {"shadow + AO": wf["vis_rays"], **wf["k2_more"]}.items():
         err, plain_ms, bnd = check_k2(ts, rays, label, name)
         errs["K2"] = max(errs["K2"], err)
         if timing:
-            ms = cuda_ms(lambda: bvh.visibility(ts, *rays), 10)
-            print(f"K2 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                  f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+            timed = time_site("K2", name, lambda: bvh.visibility(ts, *rays), 10, plain_ms, bnd)
+            out.setdefault("K2", timed)
 
-    gb, sc = wf["gb"], r.config.shadows
-    kw = dict(steps=tuple(1 << i for i in range(sc.atrous_iterations)),
-              radius=sc.atrous_radius, phi_color=sc.phi_visibility, phi_normal=sc.phi_normal,
-              sigma_depth=sc.sigma_depth, feedback_iteration=sc.feedback_iteration)
+    def chain_kw(c, phi_color):
+        return dict(steps=tuple(1 << i for i in range(c.atrous_iterations)),
+                    radius=c.atrous_radius, phi_color=phi_color, phi_normal=c.phi_normal,
+                    sigma_depth=c.sigma_depth, feedback_iteration=c.feedback_iteration)
+
+    gb, rf = wf["gb"], wf["refl"]
     geom = (gb.normal, gb.linear_z, gb.mesh_id >= 0)
-    args = (wf["vis"], wf["var"]) + geom
-    err, plain_ms = check_k3(args, kw, label, "C=1 shadows")
-    errs["K3"] = err
-    if timing:
-        out["K3"] = ((cuda_ms(lambda: stencil.atrous_chain(*args, **kw), 20), plain_ms)
-                     + atrous_bound(args, kw))
-    errs["K3"] = max(errs["K3"], check_k3((wf["hdr"], wf["var"]) + geom, kw, label,
-                                          "C=3 HDR frame")[0])
-    rf, rc = wf["refl"], r.config.reflections
-    rkw = dict(steps=tuple(1 << i for i in range(rc.atrous_iterations)),
-               radius=rc.atrous_radius, phi_color=rc.phi_color, phi_normal=rc.phi_normal,
-               sigma_depth=rc.sigma_depth, feedback_iteration=rc.feedback_iteration)
-    rargs = (rf["color"], rf["var"], rf["gb"].normal, rf["gb"].linear_z, rf["mask"])
-    err, plain_ms = check_k3(rargs, rkw, label, "C=3 reflections, denoise mask")
-    errs["K3"] = max(errs["K3"], err)
-    if timing:
-        ms = cuda_ms(lambda: stencil.atrous_chain(*rargs, **rkw), 20)
-        bnd = atrous_bound(rargs, rkw)
-        print(f"K3 C=3 reflections: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+    kw = chain_kw(r.config.shadows, r.config.shadows.phi_visibility)
+    rkw = chain_kw(r.config.reflections, r.config.reflections.phi_color)
+    sites = {"C=1 shadows": ((wf["vis"], wf["var"]) + geom, kw, True),
+             "C=3 reflections, denoise mask": (
+                 (rf["color"], rf["var"], rf["gb"].normal, rf["gb"].linear_z, rf["mask"]),
+                 rkw, True),
+             "C=3 HDR frame": ((wf["hdr"], wf["var"]) + geom, kw, False)}
+    for name, (args, k, on_main_path) in sites.items():
+        err, plain_ms = check_k3(args, k, label, name)
+        errs["K3"] = max(errs["K3"], err)
+        if timing and on_main_path:
+            timed = time_site("K3", name, lambda: stencil.atrous_chain(*args, **k), 20,
+                              plain_ms, atrous_bound(args, k))
+            out.setdefault("K3", timed)
 
     gb_a = wf["gb_a"]
     args = (wf["ao"], gb_a.normal, gb_a.linear_z, gb_a.mesh_id >= 0)
@@ -455,27 +482,124 @@ def check_kernels(r, wf, label, timing):
     print(f"[{label}] K4 bilateral blur r={radius} on {tuple(got.shape)}: max |d| {err:.3g}")
     check(err <= STENCIL_TOL, f"K4: max abs difference {err}")
     if timing:
-        out["K4"] = ((cuda_ms(lambda: stencil.bilateral_blur(*args, radius=radius), 20),
-                      plain_ms) + blur_bound(args, radius))
+        out["K4"] = time_site("K4", "AO", lambda: stencil.bilateral_blur(*args, radius=radius),
+                              20, plain_ms, blur_bound(args, radius))
 
     for name, call in wf["k5"].items():
         err, plain_ms, launch = check_k5(r, call, label, name)
         errs["K5"] = max(errs["K5"], err)
         if timing:
-            ms = cuda_ms(launch, 20)
-            bnd = sampler_bound(call)
-            print(f"K5 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                  f"bound {bnd[0]:.4f} ms ({bnd[1]})")
-            if name == "probe bounce":
-                out["K5"] = (ms, plain_ms) + bnd
+            out.setdefault("K5", time_site("K5", name, launch, 20, plain_ms, sampler_bound(call)))
     return errs, out
+
+
+def random_planes(Hh, Ww, C, dev, seed, mask="corner"):
+    """Seeded K3 inputs with structure: piecewise-flat normals and depth, a
+    black band (C=3: luma below its floor), some zero normals (weight 0
+    taps) and flat zero variance in a corner (phi_l at its floor)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    color = torch.rand((Hh, Ww) if C == 1 else (Hh, Ww, C), generator=g)
+    color[Hh // 3:Hh // 2, :Ww // 4] = 0.0
+    var = torch.rand((Hh, Ww), generator=g) * 0.1
+    var[Hh // 2:, Ww // 2:] = 0.0
+    n = torch.randn((Hh, Ww, 3), generator=g)
+    n = n / torch.linalg.norm(n, dim=-1, keepdim=True)
+    n[:, :Ww // 2] = torch.tensor([0.0, 1.0, 0.0])
+    n[:2, -2:] = 0.0
+    depth = torch.rand((Hh, Ww), generator=g) * 9 + 1
+    depth[:Hh // 2] = 2.0
+    if mask == "corner":
+        m = torch.ones((Hh, Ww), dtype=torch.bool)
+        m[:4, :4] = False
+        m[Hh // 2, :] = False
+    else:
+        m = torch.full((Hh, Ww), mask == "all", dtype=torch.bool)
+    return tuple(t.to(dev).contiguous() for t in (color, var, n, depth, m))
+
+
+def k3_edge_cases(dev):
+    """The tiled K3 against the plain version where tiles and halos meet
+    the image's edge or exceed it, and on every option of the chain."""
+    from hybrid_rendering_torch.ops import stencil
+
+    full = (1, 2, 4, 8)
+    base = dict(radius=1, phi_color=10.0, phi_normal=32.0, sigma_depth=1.0,
+                feedback_iteration=1)
+    cases = [  # (H, W, C, steps, overrides, mask)
+        (13, 9, 1, full, {}, "corner"),
+        (13, 9, 3, full, {}, "corner"),
+        (135, 241, 1, full, {}, "corner"),
+        (135, 241, 3, full, {}, "corner"),
+        (1080, 1920, 1, full, {}, "corner"),
+        (1080, 1920, 3, full, {}, "corner"),
+        (50, 60, 1, full, {}, "corner"),
+        (50, 60, 3, full, {}, "corner"),
+        (135, 244, 3, full, {"radius": 2}, "corner"),
+        (135, 241, 3, (1,), {}, "corner"),
+        (135, 241, 1, (1, 2, 4), {"feedback_iteration": 2}, "corner"),
+        (135, 241, 3, (1, 2), {"feedback_iteration": 5}, "corner"),
+        (135, 241, 1, full, {"feedback_iteration": 0}, "corner"),
+        (135, 241, 1, (1, 2, 4), {"radius": 0}, "corner"),
+        (135, 241, 3, (1, 1, 1, 1, 1), {"radius": 0, "feedback_iteration": 2}, "corner"),
+        (135, 241, 3, (1, 2), {"radius": 2, "phi_normal": 16.0, "phi_color": 4.0,
+                               "sigma_depth": 0.5}, "corner"),
+        (135, 241, 1, (1, 2), {"phi_normal": 0.0}, "corner"),
+        (135, 241, 1, full, {}, "none"),
+        (135, 241, 3, full, {}, "all"),
+    ]
+    worst = 0.0
+    for i, (Hh, Ww, C, steps, over, mask) in enumerate(cases):
+        kw = dict(base, steps=steps, **over)
+        args = random_planes(Hh, Ww, C, dev, seed=100 + i, mask=mask)
+        got = stencil.atrous_chain(*args, **kw)
+        ref = stencil.atrous_chain_plain(*args, **kw)
+        errs = k3_errors(got, ref)
+        print(f"[edge] K3 {Hh}x{Ww} C={C} steps {steps} {over or ''} mask {mask}: "
+              f"max |d| {max(errs):.3g}")
+        check(all(bool(torch.isfinite(g).all()) for g in got), f"K3 edge case {i}: non-finite")
+        check(max(errs) <= K3_TOL, f"K3 edge case {i}: max abs difference {errs}")
+        if mask == "none":
+            check(torch.equal(got[0], args[0]) and torch.equal(got[2], args[1]),
+                  "K3 with an all-false mask changed a pixel")
+        worst = max(worst, max(errs))
+    return worst
+
+
+def k1_edge_cases(ts, primary, dev):
+    """K1/K2 at the tail of a launch: every ray dead, one ray, a count that
+    is no multiple of 32 with dead rays mixed in."""
+    from hybrid_rendering_torch.ops import bvh
+
+    o, d, tm = (x[:100003].clone() for x in primary)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    mixed = tm.clone()
+    mixed[(torch.rand(tm.shape[0], generator=g) < 0.8).to(dev)] = 0.0
+    cases = {"all dead": (o, d, torch.zeros_like(tm)), "one ray": (o[:1], d[:1], tm[:1]),
+             "one dead ray": (o[:1], d[:1], torch.zeros_like(tm[:1])),
+             "100003 rays": (o, d, tm), "100003 rays, 80% dead": (o, d, mixed),
+             "33 rays": (o[:33], d[:33], mixed[:33])}
+    for name, (o_, d_, tm_) in cases.items():
+        o_, d_, tm_ = o_.contiguous(), d_.contiguous(), tm_.contiguous()
+        ref, ref_attrs = bvh.closest_hit_attrs_plain(ts, o_, d_, tm_)
+        hit, attrs = bvh.closest_hit_attrs(ts, o_, d_, tm_)
+        same = all(torch.equal(getattr(hit, f), getattr(ref, f))
+                   for f in ("t", "tri_id", "u", "v")) and torch.equal(attrs, ref_attrs)
+        check(same, f"K1 edge case {name} differs")
+        check(torch.equal(bvh.visibility(ts, o_, d_, tm_),
+                          bvh.visibility_plain(ts, o_, d_, tm_)), f"K2 edge case {name} differs")
+        print(f"[edge] K1/K2 {name}: {o_.shape[0]} rays, {(ref.tri_id >= 0).sum().item()} hits, "
+              f"equal to the plain walk")
 
 
 def kernel_phase(dev):
     r, light, camkw = build(W, H, dev)
     state = r.create_state()
     cam0 = r.make_camera(camkw["eye"], camkw["target"], 0)
-    errs0, times = check_kernels(r, wavefronts(r, state, cam0, light), "frame 0", timing=True)
+    wf = wavefronts(r, state, cam0, light)
+    errs0, times = check_kernels(r, wf, "frame 0", timing=True)
+    k1_edge_cases(r.trace_scene, wf["primary"], dev)
+    errs0["K3"] = max(errs0["K3"], k3_edge_cases(dev))
+    del wf
     _, state = r.render_frame(state, cam0, light)
     eye1 = tuple(np.asarray(camkw["eye"]) + [EYE_STEP, 0.0, 0.0])
     cam1 = r.make_camera(eye1, camkw["target"], 1, prev_view_proj=cam0.view_proj)
@@ -698,6 +822,14 @@ def slice_phase(dev, counters):
     check_ldr(out["ldr"], "full frame")
     for k in ("K1", "K2", "K3", "K4", "K5"):
         check(launches[k] > 0, f"{k} was not launched on the main path")
+    # K3: the shadows' and the reflections' chain, each in the launches of
+    # its plan
+    from hybrid_rendering_torch.ops import stencil
+    cfg = r.config
+    k3_frame = sum(len(stencil._plan([1 << i for i in range(c.atrous_iterations)],
+                                     c.atrous_radius)) for c in (cfg.shadows, cfg.reflections))
+    check(launches["K3"] == k3_frame * (TIMED_FRAMES + 1),
+          f"K3: {launches['K3']} launches, expected {k3_frame} a frame")
     for k in ("K6", "K6′"):
         check(launches[k] == 0, f"{k} was launched on the BVH path")
     del r, out
@@ -890,14 +1022,24 @@ def main() -> int:
     print(f"BVH builder: {native.builder_name()}")
 
     t0 = time.perf_counter()
+    keep = 0
     log = kernels.build(verbose=True)
     kernels.lib()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s ({kernels.LIB_PATH})")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  " + line.strip())
+        # registers, shared memory and spills of K1-K3 (trace.cu, stencil.cu)
+        if "Compiling" in line and ("trace_kernel" in line or "atrous_tile" in line):
+            keep = 2
+            print("  " + line.strip()[:160])
+        elif keep and ("registers" in line or "spill" in line):
+            keep -= 1
+            print("    " + line.strip())
 
     timed = kernel_phase(dev)
+    if "--kernels-only" in sys.argv[1:]:
+        # K1-K5 checks and edge cases, then stop: a short call for work on
+        # a kernel; prints no result line
+        return 0
     timed.update(dense_phase(dev))
     counters = {"K1": (bvh.closest_hit_attrs,), "K2": (bvh.visibility,),
                 "K3": (stencil.atrous_chain,), "K4": (stencil.bilateral_blur,),

@@ -1,5 +1,5 @@
-// K3 (one SVGF a-trous iteration) and K4 (separable bilateral blur):
-// one thread per pixel, edge-clamped taps.
+// K3 (SVGF a-trous chain) and K4 (separable bilateral blur), edge-clamped
+// taps.
 //
 // K3 replaces _make_step_kernel / _atrous_step of hybrid_rendering_tpu/
 // ops/pallas/stencil.py (pallas_call at stencil.py:162, entry atrous_chain
@@ -7,30 +7,59 @@
 // stencil.py:337, called from models/ao.py:136).
 //
 // The TPU kernels DMA edge-padded row bands plus a halo into VMEM and take
-// every tap as a static vector slice, because XLA's pad+slice form wrote
-// each shifted plane through HBM. Here a thread computes one output pixel
-// and reads its taps straight from device memory with clamped indices
-// (the same values as the padded canvases, stencil.py:152-154, and
-// filters.shift2d): neighbouring threads read neighbouring addresses, and
-// the 3x3 (K3) or 9-tap (K4) footprint of a warp is served from L1/L2.
+// every tap as a static vector slice, one pallas_call per iteration.
 //
-// What bounds them here: a 1080p plane is 8 MB, so one K3 iteration reads
-// the color, variance, normal and depth planes once from device memory
-// (C=1: 24 B/pixel, ~50 MB) and writes 8 B/pixel, while each pixel does 9
-// taps of pow/exp/exp (~30 transcendental ops per pixel) and re-reads its
-// neighbours' taps through L1/L2. Few bytes per operation: the kernel is
-// bound by issue and SFU throughput more than by HBM, so it keeps every
-// tap in registers and reads no plane twice per tap. No shared-memory
-// tiling yet: a right, simple kernel first.
+// K3 on the H100. Its bound is bytes (37 B/pixel for a chain of any
+// length), but a tap costs far more instructions than bytes: nine taps a
+// pixel and iteration, each with a normal dot, three edge-stopping
+// weights and C + 2 accumulations (~300 instructions a pixel and
+// iteration, which the taps run at about the card's instruction rate). A block
+// first loads its tile, then runs the taps, then writes, and the three do
+// not overlap much across the few waves of blocks a launch has: measured,
+// an iteration at 1080p divides about evenly between the load and the
+// taps, so it is bound by instruction rate and by the latency of its load, at
+// about a tenth of the bytes bound. The design spends as little of either
+// as it can:
+//   - one exponential a tap: w = k * n^phi_n * exp(-|dz|/phi_z) *
+//     exp(-|dl|/phi_l) = k * n^phi_n * exp2(-|dz|*rz - |dl|*rl) with rz =
+//     log2(e)/phi_z a launch constant and rl = log2(e)/phi_l once a pixel;
+//     n^32 (every preset) is five squarings, any other power phi_n *
+//     log2(n) (and log2 k) inside the same exponential; ex2.approx /
+//     lg2.approx and FMA contraction (this file is built with -fmad=true).
+//     So K3 agrees with the plain version to a tolerance, not bit for bit:
+//     ~1e-6 as a rule, up to 4e-5 where the variance is 0 and the luma
+//     weight is at its steepest. Measured, the plain version's own
+//     arithmetic (powf, two expf, divisions, no contraction) in this same
+//     tiling agrees to 3e-7 and takes 2.6 times as long;
+//   - a block loads its tile plus halo once into shared memory: normal and
+//     depth packed as one float4 (one 16-byte, conflict-free read a tap),
+//     colour as a float (C=1) or float4 (r, g, b, luma: the luma of a
+//     pixel is formed once, not once per use), variance as its own plane
+//     (the 3x3 variance box reads it without bank conflicts), the mask as
+//     bytes;
+//   - consecutive iterations fuse into one launch: normal, depth and mask
+//     (17 of the 25 input bytes) do not change along the chain, so a launch of n
+//     iterations loads a halo of the sum of their reaches, runs iteration
+//     k on the tile plus the halo the later iterations still need
+//     (ping-pong colour/variance buffers in shared memory, a block barrier
+//     between iterations) and writes only the tile. Which iterations fuse
+//     and the tile size are the wrapper's choice (ops/stencil.py _plan):
+//     measured, fusing steps 1 and 2 pays a little and any larger halo
+//     loses to its recomputation;
+//   - taps clamp in image coordinates and then index the tile, so a block
+//     edge reproduces filters.shift2d's image-edge clamp exactly; positions
+//     outside the image are neither loaded nor computed.
 //
-// Rounding: built with -fmad=false and written in the plain version's
-// operation order (ops/filters.py atrous_iteration and
-// bilateral_blur_separable), so the two agree to a few ulp.
+// K4 reads its taps straight from device memory (one thread a pixel, the
+// footprint of a warp served by L1/L2) and keeps the plain version's
+// operation order with explicit unfused multiplies and adds, so it still
+// rounds like ops/filters.py bilateral_blur_separable.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 constexpr int MAX_BLUR_RADIUS = 8;  // ops/kernels.py MAX_BLUR_RADIUS
+constexpr int MAX_FUSED = 4;        // ops/kernels.py MAX_FUSED
 
 // Bilateral-blur Gaussian taps, passed by value (ops/kernels.py GaussTaps)
 struct GaussTaps {
@@ -40,6 +69,9 @@ struct GaussTaps {
 namespace {
 
 constexpr int BX = 32, BY = 8;
+constexpr int K3_MAX_THREADS = 512;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may ask for
+constexpr float LOG2E = 1.4426950408889634f;
 
 // B3 spline taps, products formed in double and rounded once, as the JAX
 // package forms the python-float product before it meets a float32 array
@@ -48,75 +80,255 @@ __device__ __forceinline__ float atrous_k(int ady, int adx) {
   return (float)(K[ady] * K[adx]);
 }
 
+// log2 of the same taps, for the weight that is all one exponential
+__device__ __forceinline__ float atrous_log2k(int ady, int adx) {
+  const double L[3] = {0.0, -0.58496250072115619, -2.5849625007211561};
+  return (float)(L[ady] + L[adx]);
+}
+
 __device__ __forceinline__ int clampi(int v, int hi) { return v < 0 ? 0 : (v > hi ? hi : v); }
 
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float lg2_approx(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Luma rounded as the plain version rounds it (no contraction): where the
+// variance is 0 the luma weight turns an ulp of luma into 1e-4 of a tap
+__device__ __forceinline__ float luma3(float r, float g, float b) {
+  return fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(r, 0.299f), __fmul_rn(g, 0.587f)),
+                         __fmul_rn(b, 0.114f)), 1e-4f);
+}
+
+// One launch of the chain: n_iter fused iterations on tiles of tile_w x
+// tile_h pixels. reach of iteration k = max(radius * step[k], 1) (its taps
+// and the 3x3 variance box); halo = the sum of all reaches; after[k] = the
+// sum of the reaches of the iterations after k.
+struct AtrousLaunch {
+  const float* color;
+  const float* variance;
+  const float* normal;
+  const float* depth;
+  const uint8_t* mask;
+  float* out_color;
+  float* out_var;
+  float* out_feedback;  // colour after iteration feedback_at, or null
+  int H, W, tile_w, tile_h, n_iter, feedback_at, halo;
+  int step[MAX_FUSED];
+  int after[MAX_FUSED];
+  float rz[MAX_FUSED];  // log2(e) / depth_phi of each iteration
+  float phi_color, phi_normal;
+  bool squarings;  // phi_normal is 32: n^32 by five squarings
+};
+
+// Colour of a pixel in shared memory: the value (C=1) or r, g, b, luma
 template <int C>
-__device__ __forceinline__ float luma_at(const float* __restrict__ color, int p) {
-  if (C == 1) return __ldg(color + p);
-  const float l = 0.299f * __ldg(color + 3 * p) + 0.587f * __ldg(color + 3 * p + 1) +
-                  0.114f * __ldg(color + 3 * p + 2);
-  return fmaxf(l, 1e-4f);
+struct Color {
+  typedef float4 type;
+  static __device__ __forceinline__ float luma(float4 c) { return c.w; }
+};
+template <>
+struct Color<1> {
+  typedef float type;
+  static __device__ __forceinline__ float luma(float c) { return c; }
+};
+
+// floor(idx / w) for 0 <= idx < 2^20, w <= 2^10, inv_w = 1 / w
+__device__ __forceinline__ int row_of(int idx, float inv_w) {
+  return (int)(((float)idx + 0.5f) * inv_w);
+}
+
+// One iteration at one masked-in pixel (x, y), shared-memory index s:
+// filters.atrous_iteration with the folded weights. G, A, VA index the
+// loaded region, whose origin is (rx0, ry0) and pitch RW.
+template <int C, int R>
+__device__ __forceinline__ void atrous_pixel(
+    const float4* __restrict__ G, const typename Color<C>::type* __restrict__ A,
+    const float* __restrict__ VA, int s, int x, int y, int rx0, int ry0, int RW, int H,
+    int W, int step, float rz, float phi_color, float phi_normal, bool squarings,
+    typename Color<C>::type* out_c, float* out_v) {
+  // 3x3 variance box sum, rows then columns (filters.box_filter_sum)
+  const int xm = x > 0 ? -1 : 0, xp = x < W - 1 ? 1 : 0;
+  const int ym = y > 0 ? -RW : 0, yp = y < H - 1 ? RW : 0;
+  const float c0 = (VA[s] + VA[s + ym]) + VA[s + yp];
+  const float c1 = (VA[s + xm] + VA[s + xm + ym]) + VA[s + xm + yp];
+  const float c2 = (VA[s + xp] + VA[s + xp + ym]) + VA[s + xp + yp];
+  const float vb = (c0 + c1) + c2;
+  const float phi_l = fmaxf(phi_color * sqrtf(fmaxf(vb / 9.0f, 1e-10f)), 1e-6f);
+  const float rl = LOG2E / phi_l;
+
+  const float4 g0 = G[s];
+  const float l0 = Color<C>::luma(A[s]);
+  float sum_r = 0.0f, sum_g = 0.0f, sum_b = 0.0f, sum_v = 0.0f, sum_w = 0.0f;
+#pragma unroll
+  for (int dy = -R; dy <= R; ++dy) {
+    // shift2d(img, dy*step, dx*step) reads img[y - dy*step, x - dx*step]
+    const int row = (clampi(y - dy * step, H - 1) - ry0) * RW - rx0;
+#pragma unroll
+    for (int dx = -R; dx <= R; ++dx) {
+      const int q = row + clampi(x - dx * step, W - 1);
+      const float4 g = G[q];
+      const typename Color<C>::type cq = A[q];
+      const float nd = __saturatef(g0.x * g.x + g0.y * g.y + g0.z * g.z);
+      const int ady = dy < 0 ? -dy : dy, adx = dx < 0 ? -dx : dx;
+      float e = -fabsf(g0.w - g.w) * rz - fabsf(l0 - Color<C>::luma(cq)) * rl;
+      float w;
+      if (squarings) {  // n^32
+        float n2 = nd * nd;
+        n2 *= n2;
+        n2 *= n2;
+        n2 *= n2;
+        w = atrous_k(ady, adx) * (n2 * n2) * ex2_approx(e);
+      } else {  // k and n^phi inside the exponential; lg2(0) = -inf gives w = 0
+        e += atrous_log2k(ady, adx);
+        if (phi_normal != 0.0f) e += phi_normal * lg2_approx(nd);
+        w = ex2_approx(e);
+      }
+      if constexpr (C == 1) {
+        sum_r += cq * w;
+      } else {
+        sum_r += cq.x * w;
+        sum_g += cq.y * w;
+        sum_b += cq.z * w;
+      }
+      sum_v += VA[q] * w * w;
+      sum_w += w;
+    }
+  }
+  const float inv = 1.0f / fmaxf(sum_w, 1e-8f);
+  *out_v = sum_v / fmaxf(sum_w * sum_w, 1e-8f);
+  if constexpr (C == 1) {
+    *out_c = sum_r * inv;
+  } else {
+    const float r = sum_r * inv, g = sum_g * inv, b = sum_b * inv;
+    *out_c = make_float4(r, g, b, luma3(r, g, b));
+  }
+}
+
+template <int C, int R>
+__global__ void __launch_bounds__(K3_MAX_THREADS) atrous_tile_kernel(const AtrousLaunch a) {
+  typedef typename Color<C>::type CT;
+  extern __shared__ float4 smem[];
+  const int H = a.H, W = a.W;
+  const int RW = a.tile_w + 2 * a.halo, RH = a.tile_h + 2 * a.halo, NP = RW * RH;
+  const int NB = a.n_iter > 1 ? NP : 0;  // a single iteration needs no second buffer
+  float4* G = smem;               // normal.xyz, depth
+  CT* A = (CT*)(G + NP);          // colour in, and out of every second iteration
+  CT* B = A + NB;
+  float* VA = (float*)(B + NP);   // variance, likewise
+  float* VB = VA + NB;
+  uint8_t* M = (uint8_t*)(VB + NP);
+  const int bx0 = blockIdx.x * a.tile_w, by0 = blockIdx.y * a.tile_h;
+  const int rx0 = bx0 - a.halo, ry0 = by0 - a.halo;
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  {  // load the part of the region that lies in the image
+    const int x0 = max(rx0, 0), x1 = min(rx0 + RW, W);
+    const int y0 = max(ry0, 0), y1 = min(ry0 + RH, H);
+    const int w = x1 - x0, n = w * (y1 - y0);
+    const float inv_w = 1.0f / (float)w;
+    for (int idx = tid; idx < n; idx += nt) {
+      const int j = row_of(idx, inv_w);
+      const int x = x0 + idx - j * w, y = y0 + j;
+      const int p = y * W + x, s = (y - ry0) * RW + (x - rx0);
+      G[s] = make_float4(__ldg(a.normal + 3 * p), __ldg(a.normal + 3 * p + 1),
+                         __ldg(a.normal + 3 * p + 2), __ldg(a.depth + p));
+      if constexpr (C == 1) {
+        A[s] = __ldg(a.color + p);
+      } else {
+        const float r = __ldg(a.color + 3 * p), g = __ldg(a.color + 3 * p + 1),
+                    b = __ldg(a.color + 3 * p + 2);
+        A[s] = make_float4(r, g, b, luma3(r, g, b));
+      }
+      VA[s] = __ldg(a.variance + p);
+      M[s] = a.mask[p];
+    }
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int k = 0; k < MAX_FUSED; ++k) {
+    if (k >= a.n_iter) break;
+    const bool last = k == a.n_iter - 1;
+    // this iteration's pixels: the tile plus what later iterations reach
+    const int e = a.after[k];
+    const int x0 = max(bx0 - e, 0), x1 = min(bx0 + a.tile_w + e, W);
+    const int y0 = max(by0 - e, 0), y1 = min(by0 + a.tile_h + e, H);
+    const int w = x1 - x0, n = w * (y1 - y0);
+    const float inv_w = 1.0f / (float)w;
+    for (int idx = tid; idx < n; idx += nt) {
+      const int j = row_of(idx, inv_w);
+      const int x = x0 + idx - j * w, y = y0 + j;
+      const int s = (y - ry0) * RW + (x - rx0);
+      CT oc = A[s];  // masked pixels pass through untouched
+      float ov = VA[s];
+      if (M[s]) {
+        atrous_pixel<C, R>(G, A, VA, s, x, y, rx0, ry0, RW, H, W, a.step[k], a.rz[k],
+                           a.phi_color, a.phi_normal, a.squarings, &oc, &ov);
+      }
+      const int p = y * W + x;
+      const bool in_tile = x >= bx0 && x < bx0 + a.tile_w && y >= by0 && y < by0 + a.tile_h;
+      float* dst = last ? a.out_color : (k == a.feedback_at && in_tile ? a.out_feedback : nullptr);
+      if (dst != nullptr) {
+        if constexpr (C == 1) {
+          dst[p] = oc;
+        } else {
+          dst[3 * p] = oc.x;
+          dst[3 * p + 1] = oc.y;
+          dst[3 * p + 2] = oc.z;
+        }
+      }
+      if (last) {
+        a.out_var[p] = ov;
+      } else {
+        B[s] = oc;
+        VB[s] = ov;
+      }
+    }
+    if (last) break;
+    __syncthreads();
+    CT* tc = A;
+    A = B;
+    B = tc;
+    float* tv = VA;
+    VA = VB;
+    VB = tv;
+  }
+}
+
+template <int C, int R>
+int launch_atrous(const AtrousLaunch& a, int threads, size_t smem_bytes, cudaStream_t s) {
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        atrous_tile_kernel<C, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((a.W + a.tile_w - 1) / a.tile_w, (a.H + a.tile_h - 1) / a.tile_h);
+  atrous_tile_kernel<C, R><<<grid, threads, smem_bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int launch_atrous_radius(int radius, const AtrousLaunch& a, int threads, size_t smem_bytes,
+                         cudaStream_t s) {
+  switch (radius) {
+    case 0: return launch_atrous<C, 0>(a, threads, smem_bytes, s);
+    case 1: return launch_atrous<C, 1>(a, threads, smem_bytes, s);
+    case 2: return launch_atrous<C, 2>(a, threads, smem_bytes, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 __device__ __forceinline__ float ndot(const float* __restrict__ n, int p, int q) {
-  return __ldg(n + 3 * p) * __ldg(n + 3 * q) + __ldg(n + 3 * p + 1) * __ldg(n + 3 * q + 1) +
-         __ldg(n + 3 * p + 2) * __ldg(n + 3 * q + 2);
-}
-
-template <int C>
-__global__ void __launch_bounds__(BX * BY) atrous_step_kernel(
-    const float* __restrict__ color, const float* __restrict__ variance,
-    const float* __restrict__ normal, const float* __restrict__ depth,
-    const uint8_t* __restrict__ mask, int H, int W, int step, int radius,
-    float phi_color, float phi_normal, float depth_phi,
-    float* __restrict__ out_color, float* __restrict__ out_var) {
-  const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const int p = y * W + x;
-
-  if (!mask[p]) {  // masked pixels pass through untouched
-    for (int c = 0; c < C; ++c) out_color[C * p + c] = __ldg(color + C * p + c);
-    out_var[p] = __ldg(variance + p);
-    return;
-  }
-
-  // 3x3 variance box sum, rows then columns (filters.box_filter_sum)
-  const int ym = clampi(y - 1, H - 1), yp = clampi(y + 1, H - 1);
-  float cols[3];
-  const int xs[3] = {x, clampi(x - 1, W - 1), clampi(x + 1, W - 1)};
-  for (int i = 0; i < 3; ++i) {
-    cols[i] = __ldg(variance + y * W + xs[i]) + __ldg(variance + ym * W + xs[i]) +
-              __ldg(variance + yp * W + xs[i]);
-  }
-  const float vb = cols[0] + cols[1] + cols[2];
-  const float phi_l = fmaxf(phi_color * sqrtf(fmaxf(vb / 9.0f, 1e-10f)), 1e-6f);
-
-  const float l0 = luma_at<C>(color, p);
-  const float z0 = __ldg(depth + p);
-
-  float sum_c[C];
-  for (int c = 0; c < C; ++c) sum_c[c] = 0.0f;
-  float sum_v = 0.0f, sum_w = 0.0f;
-  for (int dy = -radius; dy <= radius; ++dy) {
-    // shift2d(img, dy*step, dx*step) reads img[y - dy*step, x - dx*step]
-    const int sy = clampi(y - dy * step, H - 1);
-    for (int dx = -radius; dx <= radius; ++dx) {
-      const int sx = clampi(x - dx * step, W - 1);
-      const int q = sy * W + sx;
-      const float k = atrous_k(dy < 0 ? -dy : dy, dx < 0 ? -dx : dx);
-      const float wn = powf(fminf(fmaxf(ndot(normal, p, q), 0.0f), 1.0f), phi_normal);
-      const float wz = expf(-fabsf(z0 - __ldg(depth + q)) / depth_phi);
-      const float wl = expf(-fabsf(l0 - luma_at<C>(color, q)) / phi_l);
-      const float w = wn * wz * wl * k;
-      for (int c = 0; c < C; ++c) sum_c[c] = sum_c[c] + __ldg(color + C * q + c) * w;
-      sum_v = sum_v + __ldg(variance + q) * w * w;
-      sum_w = sum_w + w;
-    }
-  }
-  const float den = fmaxf(sum_w, 1e-8f);
-  for (int c = 0; c < C; ++c) out_color[C * p + c] = sum_c[c] / den;
-  out_var[p] = sum_v / fmaxf(sum_w * sum_w, 1e-8f);
+  return __fadd_rn(__fadd_rn(__fmul_rn(__ldg(n + 3 * p), __ldg(n + 3 * q)),
+                             __fmul_rn(__ldg(n + 3 * p + 1), __ldg(n + 3 * q + 1))),
+                   __fmul_rn(__ldg(n + 3 * p + 2), __ldg(n + 3 * q + 2)));
 }
 
 // One axis of the bilateral blur; the guides (normal, depth) are always the
@@ -144,7 +356,7 @@ __global__ void __launch_bounds__(BX * BY) blur_axis_kernel(
     const float wn = powf(fminf(fmaxf(ndot(normal, p, q), 0.0f), 1.0f), normal_power);
     const float wz = expf(-fabsf(z0 - __ldg(depth + q)) / depth_phi);
     const float w = g.w[i] * wn * wz;
-    sum_c = sum_c + __ldg(src + q) * w;
+    sum_c = __fadd_rn(sum_c, __fmul_rn(__ldg(src + q), w));
     sum_w = sum_w + w;
   }
   dst[p] = sum_c / fmaxf(sum_w, 1e-8f);
@@ -152,27 +364,63 @@ __global__ void __launch_bounds__(BX * BY) blur_axis_kernel(
 
 }  // namespace
 
-extern "C" int hr_atrous_step(int channels, const float* color,
-                              const float* variance, const float* normal,
-                              const float* depth, const uint8_t* mask, int H,
-                              int W, int step, int radius, float phi_color,
-                              float phi_normal, float depth_phi,
-                              float* out_color, float* out_var, void* stream) {
-  const dim3 block(BX, BY);
-  const dim3 grid((W + BX - 1) / BX, (H + BY - 1) / BY);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (channels == 1) {
-    atrous_step_kernel<1><<<grid, block, 0, s>>>(color, variance, normal, depth, mask, H, W,
-                                                 step, radius, phi_color, phi_normal,
-                                                 depth_phi, out_color, out_var);
-  } else if (channels == 3) {
-    atrous_step_kernel<3><<<grid, block, 0, s>>>(color, variance, normal, depth, mask, H, W,
-                                                 step, radius, phi_color, phi_normal,
-                                                 depth_phi, out_color, out_var);
-  } else {
+// n_iter consecutive iterations of the chain in one launch. steps and
+// depth_phi are host arrays of n_iter entries; feedback_at is the index of
+// the iteration (not the last) whose colour also goes to out_feedback, or
+// -1. Returns cudaErrorInvalidValue where the tile plus halo does not fit
+// into a block's shared memory.
+extern "C" int hr_atrous_fused(int channels, const float* color, const float* variance,
+                               const float* normal, const float* depth,
+                               const uint8_t* mask, int H, int W, int radius, int n_iter,
+                               const int* steps, const float* depth_phi,
+                               float phi_color, float phi_normal, int feedback_at,
+                               int tile_w, int tile_h, int threads, float* out_color,
+                               float* out_var, float* out_feedback, void* stream) {
+  if (n_iter < 1 || n_iter > MAX_FUSED || tile_w < 1 || tile_h < 1 || threads < 32 ||
+      threads > K3_MAX_THREADS || threads % 32 != 0 || feedback_at >= n_iter - 1 ||
+      (feedback_at >= 0 && out_feedback == nullptr))
     return (int)cudaErrorInvalidValue;
+  AtrousLaunch a;
+  a.color = color;
+  a.variance = variance;
+  a.normal = normal;
+  a.depth = depth;
+  a.mask = mask;
+  a.out_color = out_color;
+  a.out_var = out_var;
+  a.out_feedback = out_feedback;
+  a.H = H;
+  a.W = W;
+  a.tile_w = tile_w;
+  a.tile_h = tile_h;
+  a.n_iter = n_iter;
+  a.feedback_at = feedback_at;
+  a.phi_color = phi_color;
+  a.phi_normal = phi_normal;
+  a.squarings = phi_normal == 32.0f;
+  int reach[MAX_FUSED];
+  a.halo = 0;
+  for (int k = 0; k < MAX_FUSED; ++k) {
+    a.step[k] = k < n_iter ? steps[k] : 0;
+    a.rz[k] = k < n_iter ? LOG2E / depth_phi[k] : 0.0f;
+    reach[k] = k < n_iter ? (radius * a.step[k] > 1 ? radius * a.step[k] : 1) : 0;
+    if (a.step[k] < 0) return (int)cudaErrorInvalidValue;
+    a.halo += reach[k];
   }
-  return (int)cudaGetLastError();
+  for (int k = 0, left = a.halo; k < MAX_FUSED; ++k) {
+    left -= reach[k];
+    a.after[k] = left;
+  }
+  const size_t pixels = (size_t)(tile_w + 2 * a.halo) * (size_t)(tile_h + 2 * a.halo);
+  const size_t smem_bytes =
+      pixels * (16 + (n_iter > 1 ? 2 : 1) * ((channels == 1 ? 4 : 16) + 4) + 1);
+  if (smem_bytes > (size_t)SMEM_LIMIT || pixels >= (1u << 20) ||
+      tile_w + 2 * a.halo > 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (channels == 1) return launch_atrous_radius<1>(radius, a, threads, smem_bytes, s);
+  if (channels == 3) return launch_atrous_radius<3>(radius, a, threads, smem_bytes, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int hr_bilateral_blur(const float* img, const float* normal,

@@ -12,9 +12,9 @@ import os
 import numpy as np
 import torch
 
-_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "hybrid_rendering_tpu", "data",
-    "blue_noise_128.npy")
+# the port's own copy of the mask (byte-identical to the JAX package's)
+_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "data", "blue_noise_128.npy")
 
 _PLASTIC = (0.7548776662466927, 0.5698402909980532)  # R2 sequence
 

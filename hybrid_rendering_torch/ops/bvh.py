@@ -112,13 +112,17 @@ def build_bvh(tri_pos: np.ndarray, leaf_size: int = LEAF_SIZE):
 @dataclasses.dataclass
 class TraceScene:
     """What K1/K2 and the plain walk read: the BVH, the leaf-ordered
-    triangles and the (T, 24) attribute table."""
+    triangles and the (T, 24) attribute table; and, for the kernels, the
+    same nodes and triangles as 16-byte records (``pack_nodes``,
+    ``pack_tris``)."""
 
     nodes_min: torch.Tensor  # (N,3) f32
     nodes_max: torch.Tensor  # (N,3) f32
     nodes_meta: torch.Tensor  # (N,3) i32
     tri_pos: torch.Tensor  # (T,3,3) f32
     attrs: torch.Tensor  # (T,24) f32
+    nodes_packed: torch.Tensor  # (N,8) i32: two 16-byte records a node
+    tris_packed: torch.Tensor  # (T,12) f32: three 16-byte records a triangle
 
 
 def attr_table(scene: SceneArrays) -> torch.Tensor:
@@ -139,15 +143,41 @@ def attr_table(scene: SceneArrays) -> torch.Tensor:
     ], dim=1).contiguous()
 
 
+def pack_nodes(nodes_min, nodes_max, nodes_meta) -> torch.Tensor:
+    """(N, 8) int32, two 16-byte records a node: the bits of min.xyz and
+    first_tri * 8 + tri_count, then the bits of max.xyz and the skip link.
+    Kept as integers so that no float operation touches the packed words."""
+    meta = nodes_meta.to(torch.int64)
+    if meta.numel() and (int(meta[:, 1].max()) > 7 or int(meta[:, 0].max()) >= 1 << 28):
+        raise ValueError("pack_nodes: a leaf holds more than 7 triangles or starts past 2^28")
+    word = (meta[:, 0] * 8 + meta[:, 1]).to(torch.int32)
+    return torch.cat([nodes_min.contiguous().view(torch.int32), word[:, None],
+                      nodes_max.contiguous().view(torch.int32),
+                      nodes_meta[:, 2:3].to(torch.int32)], dim=1).contiguous()
+
+
+def pack_tris(tri_pos) -> torch.Tensor:
+    """(T, 12) float32, three 16-byte records a triangle: v0, e1 = v1 - v0
+    and e2 = v2 - v0 (the fp32 subtractions of ``_moller``, done once),
+    each padded with a zero."""
+    v0 = tri_pos[:, 0]
+    pad = torch.zeros_like(v0[:, :1])
+    return torch.cat([v0, pad, tri_pos[:, 1] - v0, pad, tri_pos[:, 2] - v0, pad],
+                     dim=1).contiguous()
+
+
 def make_trace_scene(scene: SceneArrays) -> TraceScene:
     if scene.bvh_nodes_min is None:
         raise ValueError("scene was built without a BVH (use_bvh=False)")
+    nodes_min = scene.bvh_nodes_min.contiguous()
+    nodes_max = scene.bvh_nodes_max.contiguous()
+    nodes_meta = scene.bvh_nodes_meta.to(torch.int32).contiguous()
+    tri_pos = scene.tri_pos.contiguous()
     return TraceScene(
-        nodes_min=scene.bvh_nodes_min.contiguous(),
-        nodes_max=scene.bvh_nodes_max.contiguous(),
-        nodes_meta=scene.bvh_nodes_meta.to(torch.int32).contiguous(),
-        tri_pos=scene.tri_pos.contiguous(),
-        attrs=attr_table(scene),
+        nodes_min=nodes_min, nodes_max=nodes_max, nodes_meta=nodes_meta,
+        tri_pos=tri_pos, attrs=attr_table(scene),
+        nodes_packed=pack_nodes(nodes_min, nodes_max, nodes_meta),
+        tris_packed=pack_tris(tri_pos),
     )
 
 
@@ -283,10 +313,10 @@ def _check_rays(ts: TraceScene, origin, direction, t_max):
     kernels.require(origin, "origin", torch.float32, (R, 3))
     kernels.require(direction, "direction", torch.float32, (R, 3))
     kernels.require(t_max, "t_max", torch.float32, (R,))
-    kernels.require(ts.nodes_min, "nodes_min", torch.float32)
-    kernels.require(ts.nodes_max, "nodes_max", torch.float32)
-    kernels.require(ts.nodes_meta, "nodes_meta", torch.int32)
-    kernels.require(ts.tri_pos, "tri_pos", torch.float32)
+    kernels.require(ts.nodes_packed, "nodes_packed", torch.int32,
+                    (ts.nodes_min.shape[0], 8))
+    kernels.require(ts.tris_packed, "tris_packed", torch.float32,
+                    (ts.tri_pos.shape[0], 12))
     return R
 
 
@@ -300,17 +330,15 @@ def closest_hit_attrs(ts: TraceScene, origin, direction, t_max, t_min=1e-3):
     R = _check_rays(ts, origin, direction, t_max)
     kernels.require(ts.attrs, "attrs", torch.float32, (ts.tri_pos.shape[0], ATTR))
     dev = origin.device
-    t = torch.empty(R, dtype=torch.float32, device=dev)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
+    t, u, v = torch.empty((3, R), dtype=torch.float32, device=dev).unbind(0)
     tri_id = torch.empty(R, dtype=torch.int32, device=dev)
     attrs = torch.empty((R, ATTR), dtype=torch.float32, device=dev)
     err = kernels.lib().hr_trace_closest(
-        ts.nodes_min.data_ptr(), ts.nodes_max.data_ptr(), ts.nodes_meta.data_ptr(),
-        ts.nodes_min.shape[0], ts.tri_pos.data_ptr(), ts.attrs.data_ptr(),
-        ts.tri_pos.shape[0], origin.data_ptr(), direction.data_ptr(),
-        t_max.data_ptr(), R, t_min, t.data_ptr(), u.data_ptr(), v.data_ptr(),
-        tri_id.data_ptr(), attrs.data_ptr(), kernels.stream_ptr())
+        ts.nodes_packed.data_ptr(), ts.nodes_packed.shape[0], ts.tris_packed.data_ptr(),
+        ts.attrs.data_ptr(), ts.tris_packed.shape[0], origin.data_ptr(),
+        direction.data_ptr(), t_max.data_ptr(), R, t_min,
+        t.data_ptr(), u.data_ptr(), v.data_ptr(), tri_id.data_ptr(), attrs.data_ptr(),
+        kernels.stream_ptr())
     kernels.check(err, "hr_trace_closest")
     closest_hit_attrs.launches += 1
     return Hit(t=t, tri_id=tri_id, u=u, v=v), attrs
@@ -325,10 +353,9 @@ def visibility(ts: TraceScene, origin, direction, t_max, t_min=1e-3):
     R = _check_rays(ts, origin, direction, t_max)
     vis = torch.empty(R, dtype=torch.float32, device=origin.device)
     err = kernels.lib().hr_trace_visibility(
-        ts.nodes_min.data_ptr(), ts.nodes_max.data_ptr(), ts.nodes_meta.data_ptr(),
-        ts.nodes_min.shape[0], ts.tri_pos.data_ptr(), ts.tri_pos.shape[0],
-        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), R, t_min,
-        vis.data_ptr(), kernels.stream_ptr())
+        ts.nodes_packed.data_ptr(), ts.nodes_packed.shape[0], ts.tris_packed.data_ptr(),
+        ts.tris_packed.shape[0], origin.data_ptr(), direction.data_ptr(),
+        t_max.data_ptr(), R, t_min, vis.data_ptr(), kernels.stream_ptr())
     kernels.check(err, "hr_trace_visibility")
     visibility.launches += 1
     return vis

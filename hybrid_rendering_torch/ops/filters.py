@@ -7,6 +7,7 @@ Every tap is an edge-clamped shift (texelFetch with clamped coordinates).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from hybrid_rendering_torch.ops.math3d import dot3, luminance
@@ -60,8 +61,7 @@ def luma_weight(center_l, sample_l, phi):
 def depth_phi(sigma_depth: float, step: int) -> float:
     """max(sigma * |step| + 1e-4, 1e-6), rounded to float32 as the JAX
     package's weak-typed scalar is."""
-    return float(torch.tensor(max(sigma_depth * abs(step) + 1e-4, 1e-6),
-                              dtype=torch.float32))
+    return float(np.float32(max(sigma_depth * abs(step) + 1e-4, 1e-6)))
 
 
 # ---------------------------------------------------------------------------

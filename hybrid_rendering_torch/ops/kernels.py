@@ -8,8 +8,12 @@ again whenever a source is newer than the library.
 Every kernel launches on ``torch.cuda.current_stream()``; every C entry
 point returns ``cudaGetLastError()`` and ``check`` raises if it is not 0.
 
-The library is compiled with ``-fmad=false``: no multiply-add contraction,
-so each kernel rounds op by op like its plain PyTorch version.
+Each source has its own multiply-add flag (``_FMAD``). The default is
+``-fmad=false``: no contraction, so a kernel rounds op by op like its plain
+PyTorch version (trace.cu, flashtrace.cu, ddgi_sample.cu: bit parity).
+stencil.cu is built with ``-fmad=true``: K3 is bound by instruction rate
+and is held to a tolerance instead (K4 and K3's luma, in the same file,
+write their unfused operations out).
 """
 from __future__ import annotations
 
@@ -37,6 +41,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 MAX_BLUR_RADIUS = 8
+MAX_FUSED = 4  # à-trous iterations one launch can fuse (csrc/stencil.cu)
+
+# multiply-add contraction per source; sources not named here get "false"
+_FMAD = {"stencil.cu": "true"}
 
 
 class GaussTaps(ctypes.Structure):
@@ -47,12 +55,10 @@ class GaussTaps(ctypes.Structure):
 
 # C signatures: pointers and the stream as c_void_p, ints as c_int
 _SIGNATURES = {
-    "hr_trace_closest": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _F,
-                         _P, _P, _P, _P, _P, _P],
-    "hr_trace_visibility": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _F,
-                            _P, _P],
-    "hr_atrous_step": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
-                       _P, _P, _P],
+    "hr_trace_closest": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _F, _P, _P, _P, _P, _P, _P],
+    "hr_trace_visibility": [_P, _I, _P, _I, _P, _P, _P, _I, _F, _P, _P],
+    "hr_atrous_fused": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _F,
+                        _I, _I, _I, _I, _P, _P, _P, _P],
     "hr_bilateral_blur": [_P, _P, _P, _P, _I, _I, _I, GaussTaps, _F, _F,
                           _P, _P, _P],
     "hr_ddgi_sample": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
@@ -106,7 +112,8 @@ def build(verbose: bool = False) -> str:
         compile_cmds, objs = [], []
         for src in (s for s in srcs if s.endswith(".cu")):
             obj = os.path.join(tmpdir, os.path.basename(src) + ".o")
-            cmd = [nvcc, ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+            fmad = _FMAD.get(os.path.basename(src), "false")
+            cmd = [nvcc, ARCH, "-std=c++17", "-O3", f"-fmad={fmad}", "-Xcompiler", "-fPIC",
                    "-c", src, "-o", obj]
             if verbose:
                 cmd += ["-Xptxas", "-v"]

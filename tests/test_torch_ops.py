@@ -370,3 +370,44 @@ def test_taa_resolve(frames, initialized):
         _close(got, ref, msg=f"sharpen={sharpen}")
         _close(tst.history, jst.history)
         assert tst.initialized
+
+
+def test_port_blue_noise_mask_is_its_own_copy(monkeypatch):
+    """The port ships its own blue-noise mask, byte for byte the JAX
+    package's, and ``get_mask`` opens nothing under the JAX package."""
+    import os
+
+    import hybrid_rendering_tpu
+    import hybrid_rendering_torch
+
+    jdir = os.path.dirname(os.path.abspath(hybrid_rendering_tpu.__file__))
+    tdir = os.path.dirname(os.path.abspath(hybrid_rendering_torch.__file__))
+    with open(os.path.join(jdir, "data", "blue_noise_128.npy"), "rb") as f:
+        jbytes = f.read()
+    with open(os.path.join(tdir, "data", "blue_noise_128.npy"), "rb") as f:
+        assert f.read() == jbytes
+    assert os.path.abspath(tbluenoise._DATA) == os.path.join(tdir, "data", "blue_noise_128.npy")
+
+    real_exists, real_load = os.path.exists, np.load
+
+    def refuse(path):
+        if os.path.abspath(os.fspath(path)).startswith(jdir + os.sep):
+            raise AssertionError(f"the port opened {path}")
+
+    def exists(path):
+        refuse(path)
+        return real_exists(path)
+
+    def load(path, *args, **kw):
+        refuse(path)
+        return real_load(path, *args, **kw)
+
+    monkeypatch.setattr(os.path, "exists", exists)
+    monkeypatch.setattr(np, "load", load)
+    tbluenoise.get_mask.cache_clear()
+    try:
+        mask = tbluenoise.get_mask()
+        assert mask.shape == (128, 128, 2) and mask.dtype == np.float32
+        np.testing.assert_array_equal(mask, jbluenoise.get_mask())
+    finally:
+        tbluenoise.get_mask.cache_clear()

@@ -241,3 +241,38 @@ def test_wrappers_refuse_other_devices(scenes):
         tbvh.visibility(ts, o, o, torch.zeros(4, device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.require(torch.zeros(3), "x", torch.float32)
+
+
+@pytest.mark.parametrize("name", ["shadows_test", "gi_test"])
+def test_packed_records_unpack_to_the_scene(name):
+    """K1/K2 read nodes as two and triangles as three 16-byte records;
+    they hold exactly what the plain walk reads, the edges formed by the
+    fp32 subtraction ``_moller`` does."""
+    from hybrid_rendering_torch.scene import scenes as tscenes
+
+    ts = tbvh.make_trace_scene(tscenes.load_scene(name)[0])
+    N, T = ts.nodes_min.shape[0], ts.tri_pos.shape[0]
+    nodes, tris = ts.nodes_packed, ts.tris_packed
+    assert nodes.dtype == torch.int32 and tuple(nodes.shape) == (N, 8)
+    assert tris.dtype == torch.float32 and tuple(tris.shape) == (T, 12)
+    for rec in (nodes, tris, ts.attrs):
+        assert rec.is_contiguous() and rec.data_ptr() % 16 == 0
+    assert (ts.attrs.shape[1] * 4) % 16 == 0  # a row is six 16-byte pieces
+    assert torch.equal(nodes[:, 0:3].contiguous().view(torch.float32), ts.nodes_min)
+    assert torch.equal(nodes[:, 4:7].contiguous().view(torch.float32), ts.nodes_max)
+    meta = torch.stack([nodes[:, 3] >> 3, nodes[:, 3] & 7, nodes[:, 7]], dim=1)
+    assert torch.equal(meta, ts.nodes_meta)
+    assert int(ts.nodes_meta[:, 1].max()) <= tbvh.LEAF_SIZE
+    v0, v1, v2 = ts.tri_pos[:, 0], ts.tri_pos[:, 1], ts.tri_pos[:, 2]
+    assert torch.equal(tris[:, 0:3], v0)
+    assert torch.equal(tris[:, 4:7], v1 - v0)
+    assert torch.equal(tris[:, 8:11], v2 - v0)
+    assert (tris[:, 3::4] == 0).all()
+
+
+def test_pack_nodes_refuses_what_does_not_fit():
+    lo, hi = torch.zeros((1, 3)), torch.ones((1, 3))
+    with pytest.raises(ValueError, match="7 triangles"):
+        tbvh.pack_nodes(lo, hi, torch.tensor([[0, 8, 1]], dtype=torch.int32))
+    with pytest.raises(ValueError, match="2\\^28"):
+        tbvh.pack_nodes(lo, hi, torch.tensor([[1 << 28, 1, 1]], dtype=torch.int32))
