@@ -17,10 +17,13 @@ the shadow plane (K3, C=1), the reflections' temporal plane (K3, C=3) and
 the HDR frame (K3, C=3); the AO plane (K4); the probe bounce, the screen
 sample and the reflections' merged DDGI evaluation (K5); and, recorded
 from the frame with ``tracer_method="flash_dense"``, the same ray sites
-for K6 and K6′, with K6 also held against K1. K3 and K1/K2 are also held
+for K6 and K6′, with K6 also held against K1. K3, K1/K2 and K5 are also held
 against their plain versions on edge cases (images smaller than a tile or
-its halo, every option of the chain, ray batches that are all dead, one ray
-or no multiple of a warp). Then it renders the bench
+its halo, every option of the chain; ray batches that are all dead, all
+blocked or all escaping, of 1, 31, 33 and 129 rays, from inside a leaf's
+box, with t_max = inf; points outside the probe grid on every side, on a
+cage face, with zero normals, without the visibility test, in a 2 x 2 x 2
+grid, at NaN and inf positions). Then it renders the bench
 frame through ``HybridRenderer`` with every kernel counting its launches,
 renders the frame with DDGI and reflections off and the dense frame, holds
 a small moving-camera run on the card against the plain path on the CPU,
@@ -29,7 +32,8 @@ bench's fidelity section (gi_test at 256x256: 32 hybrid frames against a
 96-spp path-traced GT) through both tracers.
 
 Prints the card's name and power limit, which code built the BVH, the registers and
-shared memory of K1-K3, each kernel's time (CUDA events around calls
+shared memory of K1-K3 and K5, the time of an empty kernel launched the same
+way (the floor under every kernel time), each kernel's time (CUDA events around calls
 launched one by one into an idle card; for K1-K5 also around calls queued
 behind a short spin of the card, so that no wait for the host is in it)
 beside its plain version's and its bound (the least time the H100 could take for the same
@@ -66,7 +70,7 @@ EYE_STEP = 0.2  # one camera move: the eye slides along x
 # round op for op like it)
 K1_MIN_AGREE = 0.9999
 K1_TOL = 1e-5
-K2_MIN_AGREE = 0.9999
+K2_MIN_AGREE = 1.0  # any-hit does not depend on the order of the walk: every live ray
 STENCIL_TOL = 1e-5  # K4: rounds like its plain version
 # K3 folds its three edge-stopping weights into one approximate exp2 and is
 # built with FMA contraction: each output within 1e-4 of the plain
@@ -91,6 +95,8 @@ K6_TOL = 1e-5
 # for rays that graze or start near large walls, so a few hits flip
 K6_K1_MIN_AGREE = 0.999
 T_MIN = 1e-3  # the tracers' t_min
+# kernels whose registers, spills and shared memory are printed from nvcc's log
+PTXAS_KERNELS = ("closest_kernel", "anyhit", "atrous_tile", "ddgi_sample_kernel")
 
 # bounds: published H100 SXM peaks (NVIDIA's data sheet; dense fp32
 # outside the tensor cores)
@@ -366,7 +372,9 @@ def check_k2(ts, rays, label, name):
     share = (vis[live] == ref[live]).float().mean().item()
     err = (vis[live] - ref[live]).abs().max().item() if live.any() else 0.0
     print(f"[{label}] K2 any-hit, {name}: {o.shape[0]} rays ({live.sum().item()} live), "
-          f"agree {share:.6f}, unoccluded {vis[live].mean().item():.4f}")
+          f"agree {share:.6f}, unoccluded {vis[live].mean().item():.4f}; the plain walk: "
+          f"{stats['nodes'] / max(live.sum().item(), 1):.1f} box and "
+          f"{stats['tris'] / max(live.sum().item(), 1):.1f} triangle tests a live ray")
     check(share >= K2_MIN_AGREE, f"K2 {name}: agrees on {share} of live rays")
     return err, plain_ms, walk_bound(ts, o.shape[0], stats, any_hit=True)
 
@@ -380,6 +388,21 @@ def k3_errors(got, ref):
         scale = max(1.0, p.abs().max().item()) if i < 2 and p.numel() else 1.0
         errs.append((g - p).abs().max().item() / scale if p.numel() else 0.0)
     return errs
+
+
+def k2_by_batch_size(ts, vis_rays):
+    """K2's queued time on prefixes of the frame's shadow rays and of its AO
+    rays: K2 picks the form of its leaf test by the size of the batch
+    (csrc/trace.cu SMALL_BATCH), and these sizes lie on either side of it."""
+    from hybrid_rendering_torch.ops import bvh
+
+    shadow_rays = W * H  # the batched launch: the shadow rays, then the AO rays
+    for name, start, counts in (("shadow", 0, (1 << 17, 1 << 19, 1 << 20, shadow_rays)),
+                                ("AO", shadow_rays, (1 << 17, vis_rays[0].shape[0] - shadow_rays))):
+        for n in counts:
+            o, d, tm = (x[start:start + n].contiguous() for x in vis_rays)
+            ms = cuda_ms(lambda: bvh.visibility(ts, o, d, tm), 20, queued=True)
+            print(f"K2 by batch size, the first {n} {name} rays: {ms:.4f} ms queued")
 
 
 def check_k3(args, kw, label, name):
@@ -449,6 +472,8 @@ def check_kernels(r, wf, label, timing):
         if timing:
             timed = time_site("K2", name, lambda: bvh.visibility(ts, *rays), 10, plain_ms, bnd)
             out.setdefault("K2", timed)
+    if timing:
+        k2_by_batch_size(ts, wf["vis_rays"])
 
     def chain_kw(c, phi_color):
         return dict(steps=tuple(1 << i for i in range(c.atrous_iterations)),
@@ -591,14 +616,161 @@ def k1_edge_cases(ts, primary, dev):
               f"equal to the plain walk")
 
 
+def k2_edge_cases(ts, primary, dev):
+    """K2 where the lanes of a warp end their walks apart or not at all:
+    every ray dead, blocked or escaping, batches of 1, 31, 33 and 129 rays,
+    rays that start inside a leaf's box, and t_max = inf. Equal to the
+    plain walk on every ray."""
+    from hybrid_rendering_torch.ops import bvh
+
+    o, d, tm = (x[::10].contiguous() for x in primary)  # every 10th primary ray
+    hits = bvh.closest_hit_attrs(ts, o, d, tm)[0].tri_id >= 0
+    check(bool(hits.any()) and bool((~hits).any()), "K2 edge cases: no mix of hits and misses")
+    mixed = torch.nonzero(hits)[0, 0].item()  # from the first hit on
+    leaves = ts.nodes_meta[:, 1] > 0
+    centers = ((ts.nodes_min + ts.nodes_max) * 0.5)[leaves]
+    g = torch.Generator(device="cpu").manual_seed(6)
+    dirs = torch.randn((centers.shape[0], 3), generator=g).to(dev)
+    dirs = dirs / torch.linalg.norm(dirs, dim=1, keepdim=True)
+    far = torch.full((centers.shape[0],), 1e4, device=dev)
+    cases = {"all dead": (o, d, torch.zeros_like(tm)),
+             "all blocked": (o[hits], d[hits], tm[hits]),
+             "all escaping": (o[~hits], d[~hits], tm[~hits]),
+             "inside a leaf's box": (centers, dirs, far),
+             "t_max = inf": (o, d, torch.full_like(tm, float("inf")))}
+    for n in (1, 31, 33, 129):
+        sl = slice(max(mixed - n // 2, 0), max(mixed - n // 2, 0) + n)
+        cases[f"{n} rays"] = (o[sl], d[sl], tm[sl])
+    for name, rays in cases.items():
+        o_, d_, tm_ = (x.contiguous() for x in rays)
+        vis = bvh.visibility(ts, o_, d_, tm_)
+        torch.cuda.synchronize()
+        ref = bvh.visibility_plain(ts, o_, d_, tm_)
+        check(torch.equal(vis, ref), f"K2 edge case {name} differs")
+        if name in ("all dead", "all escaping"):
+            check(bool((vis == 1).all()), f"K2 edge case {name}: a ray is blocked")
+        if name == "all blocked":
+            check(bool((vis == 0).all()), f"K2 edge case {name}: a ray is visible")
+        print(f"[edge] K2 {name}: {o_.shape[0]} rays, unoccluded {vis.mean().item():.4f}, "
+              f"equal to the plain walk")
+
+
+def k5_edge_cases(dev):
+    """K5 against its plain version on random atlases where cells and
+    texels clamp: points outside the grid on every side, on a cage face,
+    zero normals, the visibility test off, the smallest grid
+    ``make_probe_grid`` builds (2 x 2 x 2), and NaN/inf positions, whose
+    outputs are not compared: they must not fault."""
+    from hybrid_rendering_torch.config import DDGIConfig
+    from hybrid_rendering_torch.models import ddgi
+    from hybrid_rendering_torch.ops import ddgi_sample
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=g) * (hi - lo) + lo
+
+    def unit(n):
+        v = torch.randn((n, 3), generator=g)
+        return v / torch.linalg.norm(v, dim=1, keepdim=True)
+
+    def atlases(grid, cfg):
+        P, S, D = grid.num_probes, cfg.irradiance_oct_size, cfg.depth_oct_size
+        mean = rand(P, D, D, lo=0.2, hi=1.5 * grid.max_distance)
+        return ddgi.DDGIState(
+            irradiance=rand(P, S, S, 3, hi=2.0).to(dev),
+            depth=torch.stack([mean, mean * mean + rand(P, D, D, hi=2.0)], -1).to(dev),
+            first_frame=0, accum_frames=7)
+
+    cfg = DDGIConfig(probe_distance=1.0, normal_bias=0.25)
+    grid = ddgi.make_probe_grid([-5.0, -0.1, -5.0], [5.0, 10.0, 5.0], cfg)
+    tiny_cfg = DDGIConfig(probe_distance=1.0, grid_layout="interior")
+    tiny = ddgi.make_probe_grid([0.0, 0.0, 0.0], [0.9, 0.9, 0.9], tiny_cfg)
+    check(tuple(tiny.counts) == (2, 2, 2), f"smallest grid has counts {tiny.counts}")
+
+    def span(gr):
+        lo = torch.as_tensor(gr.start)
+        return lo, lo + (torch.as_tensor(gr.counts, dtype=torch.float32) - 1) * torch.as_tensor(gr.step)
+
+    N = 4096
+    lo, hi = span(grid)
+    inside = rand(N, 3) * (hi - lo) + lo
+    outside = inside.clone()  # each point beyond the grid on one side of one axis, or a corner
+    which = torch.arange(N) % 7
+    for axis in range(3):
+        outside[which == 2 * axis, axis] = lo[axis] - rand(N, hi=3.0)[which == 2 * axis]
+        outside[which == 2 * axis + 1, axis] = hi[axis] + rand(N, hi=3.0)[which == 2 * axis + 1]
+    outside[which == 6] = (hi + rand(N, 3, hi=2.0))[which == 6]
+    face = inside.clone()  # on a probe plane of one axis, the first and last among them
+    plane = torch.randint(0, max(grid.counts), (N,), generator=g)
+    for axis in range(3):
+        k = torch.minimum(plane, torch.tensor(grid.counts[axis] - 1)).to(torch.float32)
+        sel = torch.arange(N) % 3 == axis
+        face[sel, axis] = (lo[axis] + k * float(grid.step[axis]))[sel]
+    broken = inside.clone()
+    broken[::5] = float("nan")
+    broken[1::5, 0] = float("inf")
+    broken[2::5, 2] = float("-inf")
+    t_lo, t_hi = span(tiny)
+    around_tiny = rand(N, 3, lo=-1.0, hi=2.0) * (t_hi - t_lo) + t_lo
+
+    state, tiny_state = atlases(grid, cfg), atlases(tiny, tiny_cfg)
+    off = dataclasses.replace(cfg, visibility_test=False)
+    cases = {  # name: (grid, state, cfg, p, n, rows compared)
+        "outside the grid on every side": (grid, state, cfg, outside, unit(N), None),
+        "on a cage face": (grid, state, cfg, face, unit(N), None),
+        "zero normals": (grid, state, cfg, inside, torch.zeros(N, 3), None),
+        "visibility test off": (grid, state, off, outside, unit(N), None),
+        "grid 2 x 2 x 2": (tiny, tiny_state, tiny_cfg, around_tiny, unit(N), None),
+        "NaN and inf positions": (grid, state, cfg, broken, unit(N),
+                                  torch.isfinite(broken).all(dim=1)),
+    }
+    worst = 0.0
+    for name, (gr, st, c, p, n, rows) in cases.items():
+        args = (gr, st, c, p.to(dev).contiguous(), n.to(dev).contiguous(),
+                unit(N).to(dev).contiguous())
+        got = ddgi_sample.sample_irradiance(*args)
+        torch.cuda.synchronize()  # a fault of the kernel surfaces here
+        ref = ddgi.sample_irradiance(*args)
+        rows = torch.ones(N, dtype=torch.bool) if rows is None else rows
+        rows = rows.to(dev)
+        err = (got[rows] - ref[rows]).abs().max().item()
+        print(f"[edge] K5 {name}: {N} points ({int(rows.sum())} compared), max |d| {err:.3g}")
+        check(bool(torch.isfinite(got[rows]).all()), f"K5 edge case {name}: non-finite output")
+        check(err <= K5_TOL, f"K5 edge case {name}: max abs difference {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def launch_floor():
+    """The time of a kernel that does no work (one thread), launched through
+    the same ctypes path as K1-K6′: what the card and the wrapper take for
+    any launch, beside which the smallest bounds (K2's and K5's small
+    sites) have to be read."""
+    from hybrid_rendering_torch.ops import kernels
+
+    lib = kernels.lib()
+
+    def noop():
+        kernels.check(lib.hr_noop(kernels.stream_ptr()), "hr_noop")
+
+    ms, queued = cuda_ms(noop, 200), cuda_ms(noop, 200, queued=True)
+    print(f"empty kernel (one thread, no work): {ms:.4f} ms a launch one by one, "
+          f"{queued:.4f} ms queued behind a busy card")
+    return ms, queued
+
+
 def kernel_phase(dev):
     r, light, camkw = build(W, H, dev)
     state = r.create_state()
     cam0 = r.make_camera(camkw["eye"], camkw["target"], 0)
     wf = wavefronts(r, state, cam0, light)
+    launch_floor()
     errs0, times = check_kernels(r, wf, "frame 0", timing=True)
     k1_edge_cases(r.trace_scene, wf["primary"], dev)
+    k2_edge_cases(r.trace_scene, wf["primary"], dev)
     errs0["K3"] = max(errs0["K3"], k3_edge_cases(dev))
+    errs0["K5"] = max(errs0["K5"], k5_edge_cases(dev))
     del wf
     _, state = r.render_frame(state, cam0, light)
     eye1 = tuple(np.asarray(camkw["eye"]) + [EYE_STEP, 0.0, 0.0])
@@ -1027,8 +1199,8 @@ def main() -> int:
     kernels.lib()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s ({kernels.LIB_PATH})")
     for line in log.splitlines():
-        # registers, shared memory and spills of K1-K3 (trace.cu, stencil.cu)
-        if "Compiling" in line and ("trace_kernel" in line or "atrous_tile" in line):
+        # registers, shared memory and spills of K1-K3 and K5
+        if "Compiling" in line and any(k in line for k in PTXAS_KERNELS):
             keep = 2
             print("  " + line.strip()[:160])
         elif keep and ("registers" in line or "spill" in line):

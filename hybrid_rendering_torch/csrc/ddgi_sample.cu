@@ -15,10 +15,18 @@
 // 4 wrapped bilinear taps of the depth atlas (2 channels) and 4 of the
 // irradiance atlas (3 channels) straight from global memory. At the bench
 // grid (1,156 probes) the two atlases are 0.3 MB + 2.4 MB and stay in the
-// 50 MB L2, so the kernel is bound by load latency and by the ~40
-// divisions, square roots and compares a corner costs, not by HBM. The
-// design keeps a point's state in registers and reads through the
-// read-only path (__ldg). Shared-memory probe windows are later work.
+// 50 MB L2. Measured, the kernel is bound by instruction rate first (more
+// lanes a point, which repeat the point's set-up, are slower, and so is
+// anything that adds work) and, for points that lie apart (the probe rays'
+// hit points), by the gathers' traffic from L2. Most of a corner's work is
+// IEEE divisions and square roots that the plain version's rounding
+// needs. The design: one thread a point, the point's state in registers,
+// loads through the read-only path (__ldg); everything that depends on
+// the point alone is done once and not once a corner (the normal's
+// octahedral taps and bilinear fractions in the irradiance atlas: a third
+// of a corner's work); taps that fall inside a probe's tile skip the two
+// wrap passes; the direction's length and the distance share one square
+// root.
 //
 // Every cell and texel index is clamped, and floor() of a non-finite
 // coordinate counts as 0 before the clamp, so the points of missed probe
@@ -27,7 +35,12 @@
 // Rounding: built with -fmad=false and written in the plain version's
 // operation order (models/ddgi.py sample_irradiance, oct_bilinear_sample,
 // ops/octahedral.py; dots summed left to right as math3d.dot3), so the two
-// agree bit for bit.
+// agree bit for bit. It stays so on purpose: where every ray of a depth
+// texel missed, its variance |mean^2 - mean2| is rounding noise, and the
+// Chebyshev weight variance / (variance + d^2) turns an ulp of that noise
+// into 1e-3 of irradiance, so reciprocal multiplies and approximate roots
+// in the visibility chain do not hold a tolerance (measured: 2.6e-3), and
+// loosening only the rest buys under 10%.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,10 +87,15 @@ __device__ __forceinline__ int texel(int x, int y, int side) {
   return clampi(y, 0, side - 1) * side + clampi(x, 0, side - 1);
 }
 
-// models/ddgi.py oct_bilinear_sample for one probe and direction
-template <int C>
-__device__ __forceinline__ void oct_bilinear(const float* __restrict__ atlas, int side, int probe,
-                                             V3 d, float* out) {
+// The four wrapped taps of models/ddgi.py oct_bilinear_sample for one
+// direction: texel offsets within a probe's tile (in texels) and the
+// bilinear fractions. They depend on the direction only, not on the probe.
+struct Taps {
+  int t00, t10, t01, t11;
+  float fx, fy, ax, ay;
+};
+
+__device__ __forceinline__ Taps oct_taps(V3 d, int side) {
   // ops/octahedral.py direction_to_octahedral
   const float denom = fmaxf(fabsf(d.x) + fabsf(d.y) + fabsf(d.z), 1e-8f);
   float ox = d.x / denom, oy = d.y / denom;
@@ -89,18 +107,41 @@ __device__ __forceinline__ void oct_bilinear(const float* __restrict__ atlas, in
   }
   const float tx = (ox * 0.5f + 0.5f) * (float)side - 0.5f;
   const float ty = (oy * 0.5f + 0.5f) * (float)side - 0.5f;
-  const float fx = tx - floorf(tx), fy = ty - floorf(ty);
+  Taps t;
+  t.fx = tx - floorf(tx);
+  t.fy = ty - floorf(ty);
+  t.ax = 1.0f - t.fx;
+  t.ay = 1.0f - t.fy;
   const int x0 = (int)finite_floor(tx), y0 = (int)finite_floor(ty);
+  if ((unsigned)x0 < (unsigned)(side - 1) && (unsigned)y0 < (unsigned)(side - 1)) {
+    // all four taps inside the tile: nothing wraps
+    t.t00 = y0 * side + x0;
+    t.t10 = t.t00 + 1;
+    t.t01 = t.t00 + side;
+    t.t11 = t.t01 + 1;
+  } else {
+    t.t00 = texel(x0, y0, side);
+    t.t10 = texel(x0 + 1, y0, side);
+    t.t01 = texel(x0, y0 + 1, side);
+    t.t11 = texel(x0 + 1, y0 + 1, side);
+  }
+  return t;
+}
+
+// the bilinear blend of a probe's tile at those taps, each product taken
+// left to right as the plain version takes it
+template <int C>
+__device__ __forceinline__ void oct_blend(const float* __restrict__ atlas, int side, int probe,
+                                          const Taps& t, float* out) {
   const float* base = atlas + (size_t)probe * side * side * C;
-  const float* t00 = base + C * texel(x0, y0, side);
-  const float* t10 = base + C * texel(x0 + 1, y0, side);
-  const float* t01 = base + C * texel(x0, y0 + 1, side);
-  const float* t11 = base + C * texel(x0 + 1, y0 + 1, side);
-  const float ax = 1.0f - fx, ay = 1.0f - fy;
+  const float* t00 = base + C * t.t00;
+  const float* t10 = base + C * t.t10;
+  const float* t01 = base + C * t.t01;
+  const float* t11 = base + C * t.t11;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    out[c] = __ldg(t00 + c) * ax * ay + __ldg(t10 + c) * fx * ay + __ldg(t01 + c) * ax * fy +
-             __ldg(t11 + c) * fx * fy;
+    out[c] = __ldg(t00 + c) * t.ax * t.ay + __ldg(t10 + c) * t.fx * t.ay +
+             __ldg(t01 + c) * t.ax * t.fy + __ldg(t11 + c) * t.fx * t.fy;
   }
 }
 
@@ -133,6 +174,8 @@ __global__ void __launch_bounds__(BLOCK) ddgi_sample_kernel(
                  fminf(fmaxf((p.z - base_pos.z) / g.tz, 0.0f), 1.0f)};
   const V3 bias{(n.x + 3.0f * wo.x) * normal_bias, (n.y + 3.0f * wo.y) * normal_bias,
                 (n.z + 3.0f * wo.z) * normal_bias};
+  // the normal's taps in the irradiance atlas: the same for all 8 probes
+  const Taps irr_taps = oct_taps(n, irr_side);
 
   float sum_irr[3] = {0.0f, 0.0f, 0.0f};
   float sum_w = 0.0f;
@@ -145,7 +188,6 @@ __global__ void __launch_bounds__(BLOCK) ddgi_sample_kernel(
 
     const V3 ptp{(p.x - probe_pos.x) + bias.x, (p.y - probe_pos.y) + bias.y,
                  (p.z - probe_pos.z) + bias.z};
-    const V3 dir = normalize3(V3{-ptp.x, -ptp.y, -ptp.z});
     const float tri_w = (ox ? alpha.x : 1.0f - alpha.x) * (oy ? alpha.y : 1.0f - alpha.y) *
                         (oz ? alpha.z : 1.0f - alpha.z);
 
@@ -155,9 +197,15 @@ __global__ void __launch_bounds__(BLOCK) ddgi_sample_kernel(
     float w = b * b + 0.2f;
 
     if (visibility_test) {
-      const float dist = sqrtf(fmaxf(dot3(ptp, ptp), 1e-12f));
+      // normalize3(-ptp) and the distance share one square root: the two
+      // clamps (1e-20, 1e-12) differ only below 1e-12
+      const float dd = dot3(ptp, ptp);
+      const float len = sqrtf(fmaxf(dd, 1e-20f));
+      const float dist = dd >= 1e-12f ? len : sqrtf(1e-12f);
+      // the depth direction -normalize3(-ptp): negation is exact
+      const V3 from_probe{ptp.x / len, ptp.y / len, ptp.z / len};
       float temp[2];
-      oct_bilinear<2>(depth_atlas, depth_side, probe, V3{-dir.x, -dir.y, -dir.z}, temp);
+      oct_blend<2>(depth_atlas, depth_side, probe, oct_taps(from_probe, depth_side), temp);
       const float mean = temp[0];
       const float variance = fabsf(mean * mean - temp[1]);
       const float d = fmaxf(dist - mean, 0.0f);
@@ -172,7 +220,7 @@ __global__ void __launch_bounds__(BLOCK) ddgi_sample_kernel(
     w = w * tri_w;
 
     float irr[3];
-    oct_bilinear<3>(irr_atlas, irr_side, probe, n, irr);
+    oct_blend<3>(irr_atlas, irr_side, probe, irr_taps, irr);
 #pragma unroll
     for (int k = 0; k < 3; ++k) sum_irr[k] = sum_irr[k] + w * sqrtf(fmaxf(irr[k], 0.0f));
     sum_w = sum_w + w;

@@ -12,7 +12,9 @@ Two versions of each trace live here:
     the reference the kernels are checked against;
   - the CUDA kernels K1 (``closest_hit_attrs``: closest hit + the hit
     triangle's attribute row) and K2 (``visibility``: any-hit), in
-    csrc/trace.cu, used for every CUDA tensor.
+    csrc/trace.cu, used for every CUDA tensor. K1 walks the skip-link
+    tree; K2, whose answer does not depend on the order of the walk, walks
+    the same tree collapsed to 4 children a node (``pack_wide_nodes``).
 
 ``make_tracers`` / ``make_surface_tracer`` bind them (or, by the JAX
 package's method names, the dense kernels K6/K6′ of ops/flashtrace.py or
@@ -31,6 +33,9 @@ from hybrid_rendering_torch.ops import flashtrace, intersect, kernels
 from hybrid_rendering_torch.types import Hit, SceneArrays
 
 LEAF_SIZE = 4
+WIDE = 4  # children of a node of the collapsed tree K2 walks
+WIDE_STACK = 64  # entries of K2's per-ray stack (csrc/trace.cu STACK)
+WIDE_EMPTY = -(1 << 31)  # child word of an unused slot
 ATTR = 24  # attribute row: n0 n1 n2 (9) uv0..2 (6) mat mesh geo_n (5) tangent (4)
 
 
@@ -114,7 +119,8 @@ class TraceScene:
     """What K1/K2 and the plain walk read: the BVH, the leaf-ordered
     triangles and the (T, 24) attribute table; and, for the kernels, the
     same nodes and triangles as 16-byte records (``pack_nodes``,
-    ``pack_tris``)."""
+    ``pack_tris``) and, for K2, the nodes collapsed to 4 children
+    (``pack_wide_nodes``)."""
 
     nodes_min: torch.Tensor  # (N,3) f32
     nodes_max: torch.Tensor  # (N,3) f32
@@ -123,6 +129,7 @@ class TraceScene:
     attrs: torch.Tensor  # (T,24) f32
     nodes_packed: torch.Tensor  # (N,8) i32: two 16-byte records a node
     tris_packed: torch.Tensor  # (T,12) f32: three 16-byte records a triangle
+    wide_packed: torch.Tensor  # (M,28) i32: seven 16-byte records a 4-wide node (K2)
 
 
 def attr_table(scene: SceneArrays) -> torch.Tensor:
@@ -166,6 +173,82 @@ def pack_tris(tri_pos) -> torch.Tensor:
                      dim=1).contiguous()
 
 
+def pack_wide_nodes(nodes_min, nodes_max, nodes_meta) -> torch.Tensor:
+    """The binary BVH collapsed to up to WIDE children a node, for K2:
+    (M, 28) int32, seven 16-byte records a node: the bits of the children's
+    min.x, min.y, min.z, max.x, max.y, max.z (one record each, a lane a
+    child) and the child words. A child word is the index of an inner
+    child's node (>= 0), ``~(first_tri * 8 + tri_count)`` for a leaf, or
+    WIDE_EMPTY for an unused slot (its box is zeros and is never entered).
+
+    A node's children are its two binary children, the inner child of
+    largest surface area replaced by its own two children until WIDE
+    are reached or all are leaves. Every child keeps the box of its binary
+    node, and every leaf of the binary tree is the child of exactly one
+    node, so any-hit visibility (which tests a leaf's triangles iff the
+    leaf's box and all boxes above it are hit, and a box lies inside its
+    parent's) is the same function on either tree. Node 0 is the root,
+    nodes are in depth-first order. Raises if a walk could need more than
+    WIDE_STACK stack entries."""
+    lo = nodes_min.detach().cpu().numpy()
+    hi = nodes_max.detach().cpu().numpy()
+    meta = nodes_meta.detach().cpu().numpy().astype(np.int64)
+    N = meta.shape[0]
+    if N == 0:
+        return torch.zeros((0, 7 * WIDE), dtype=torch.int32, device=nodes_min.device)
+    if meta[:, 1].max() > 7 or meta[:, 0].max() >= 1 << 28:
+        raise ValueError("pack_wide_nodes: a leaf holds more than 7 triangles or starts past 2^28")
+    ext = np.maximum(hi - lo, 0.0).astype(np.float64)
+    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
+    is_leaf = meta[:, 1] > 0
+
+    def children(i):
+        return [i + 1, int(meta[i + 1, 2])]
+
+    groups = []  # a node's children, as binary node indices
+    index_of = {}  # binary inner node -> its wide node
+    pending = [0]
+    if is_leaf[0]:  # a one-leaf tree: a root whose only child is the leaf
+        groups.append([0])
+        pending = []
+    while pending:  # depth first: a node's subtrees follow it
+        i = pending.pop()
+        index_of[i] = len(groups)
+        kids = children(i)
+        while len(kids) < WIDE:
+            inner = [k for k in kids if not is_leaf[k]]
+            if not inner:
+                break
+            big = max(inner, key=lambda k: area[k])
+            at = kids.index(big)
+            kids[at:at + 1] = children(big)
+        groups.append(kids)
+        pending.extend(k for k in reversed(kids) if not is_leaf[k])
+
+    M = len(groups)
+    boxes = np.zeros((M, 6, WIDE), np.float32)
+    words = np.full((M, WIDE), WIDE_EMPTY, np.int64)
+    need = np.zeros(M, np.int64)  # stack entries a walk below this node can hold
+    for w in range(M - 1, -1, -1):  # children come after their parent
+        below = 1  # a leaf child is tested from the stack too
+        for slot, k in enumerate(groups[w]):
+            boxes[w, 0:3, slot] = lo[k]
+            boxes[w, 3:6, slot] = hi[k]
+            if is_leaf[k]:
+                words[w, slot] = ~(meta[k, 0] * 8 + meta[k, 1])
+            else:
+                words[w, slot] = index_of[k]
+                below = max(below, need[index_of[k]])
+        # all but one of the hit children wait on the stack below it
+        need[w] = len(groups[w]) - 1 + below
+    if need[0] > WIDE_STACK:
+        raise ValueError(f"pack_wide_nodes: a walk may need {need[0]} stack entries, "
+                         f"more than {WIDE_STACK}")
+    packed = np.concatenate([boxes.reshape(M, 6 * WIDE).view(np.int32),
+                             words.astype(np.int32)], axis=1)
+    return torch.from_numpy(np.ascontiguousarray(packed)).to(nodes_min.device)
+
+
 def make_trace_scene(scene: SceneArrays) -> TraceScene:
     if scene.bvh_nodes_min is None:
         raise ValueError("scene was built without a BVH (use_bvh=False)")
@@ -178,6 +261,7 @@ def make_trace_scene(scene: SceneArrays) -> TraceScene:
         tri_pos=tri_pos, attrs=attr_table(scene),
         nodes_packed=pack_nodes(nodes_min, nodes_max, nodes_meta),
         tris_packed=pack_tris(tri_pos),
+        wide_packed=pack_wide_nodes(nodes_min, nodes_max, nodes_meta),
     )
 
 
@@ -347,13 +431,16 @@ def closest_hit_attrs(ts: TraceScene, origin, direction, t_max, t_min=1e-3):
 def visibility(ts: TraceScene, origin, direction, t_max, t_min=1e-3):
     """K2: any-hit visibility, (R,) 1.0 = unoccluded. A ray with
     t_max <= t_min is visible (the bvh rule). CPU tensors take the plain
-    walk; CUDA tensors launch csrc/trace.cu."""
+    walk; CUDA tensors launch csrc/trace.cu, which walks ``wide_packed``
+    and answers every ray as the plain walk does."""
     if kernels.on_cpu(origin):
         return visibility_plain(ts, origin, direction, t_max, t_min)
     R = _check_rays(ts, origin, direction, t_max)
+    kernels.require(ts.wide_packed, "wide_packed", torch.int32,
+                    (ts.wide_packed.shape[0], 7 * WIDE))
     vis = torch.empty(R, dtype=torch.float32, device=origin.device)
     err = kernels.lib().hr_trace_visibility(
-        ts.nodes_packed.data_ptr(), ts.nodes_packed.shape[0], ts.tris_packed.data_ptr(),
+        ts.wide_packed.data_ptr(), ts.wide_packed.shape[0], ts.tris_packed.data_ptr(),
         ts.tris_packed.shape[0], origin.data_ptr(), direction.data_ptr(),
         t_max.data_ptr(), R, t_min, vis.data_ptr(), kernels.stream_ptr())
     kernels.check(err, "hr_trace_visibility")

@@ -65,6 +65,7 @@ _SIGNATURES = {
                        _F, _F, _I, _P, _P, _P, _I, _P, _P],
     "hr_flash_closest": [_P, _P, _I, _P, _P, _I, _F, _P, _P, _P, _P, _P, _P],
     "hr_flash_visibility": [_P, _I, _P, _P, _I, _F, _P, _P],
+    "hr_noop": [_P],
 }
 
 

@@ -241,3 +241,93 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="meta"):
         tds.sample_irradiance(grid, state, cfg, x, x, x)
     assert tds.sample_irradiance.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# K5's arithmetic where it departs from the plain version's shape
+# ---------------------------------------------------------------------------
+
+
+def _hoisted_taps(dirs, S):
+    """What K5 computes once a point from the normal: the four tap offsets
+    inside a probe's tile (the wrap passes skipped where all four taps lie
+    inside the tile) and the bilinear fractions."""
+    oct_ = toct.direction_to_octahedral(dirs)
+    tx = (oct_[..., 0] * 0.5 + 0.5) * S - 0.5
+    ty = (oct_[..., 1] * 0.5 + 0.5) * S - 0.5
+    fx, fy = tx - torch.floor(tx), ty - torch.floor(ty)
+    x0 = tddgi._finite_floor(tx).to(torch.int64)
+    y0 = tddgi._finite_floor(ty).to(torch.int64)
+    inside = (x0 >= 0) & (x0 < S - 1) & (y0 >= 0) & (y0 < S - 1)
+    offsets = []
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        xw, yw = tddgi._wrap_oct_coords(x0 + dx, y0 + dy, S)
+        offsets.append(torch.where(inside, (y0 + dy) * S + (x0 + dx), yw * S + xw))
+    return offsets, (fx[..., None], fy[..., None])
+
+
+def _hoisted_blend(atlas, probe_idx, offsets, fracs):
+    """The blend of one probe's tile at hoisted taps, each product taken
+    left to right as ``oct_bilinear_sample`` takes it."""
+    P, S, _, C = atlas.shape
+    flat = atlas.reshape(P * S * S, C)
+    fx, fy = fracs
+    t00, t10, t01, t11 = (flat[probe_idx * (S * S) + o] for o in offsets)
+    return (t00 * (1 - fx) * (1 - fy) + t10 * fx * (1 - fy)
+            + t01 * (1 - fx) * fy + t11 * fx * fy)
+
+
+@pytest.mark.parametrize("side,channels", [(8, 3), (16, 2)])
+def test_hoisted_k5_taps_equal_oct_bilinear_sample(side, channels):
+    """K5 takes the normal's taps and fractions once a point and reuses
+    them for the eight probes of the cage: bit for bit what
+    ``oct_bilinear_sample`` gives probe by probe, on random directions, on
+    the octahedral seams (where taps wrap) and on a zero vector."""
+    rs = np.random.RandomState(21)
+    n = 4096
+    dirs = _unit(rs, n)
+    seams = SEAM_DIRS / np.linalg.norm(SEAM_DIRS, axis=1, keepdims=True)
+    dirs[:1024] = seams[rs.randint(0, len(seams), 1024)]
+    dirs[1024:1032] = 0.0
+    P = 40
+    atlas = _t(rs.uniform(0.0, 2.0, size=(P, side, side, channels)).astype(np.float32))
+    probes = _t(rs.randint(0, P, size=(n, 8)))
+    offsets, fracs = _hoisted_taps(_t(dirs), side)
+    wrapped = sum(int((o != offsets[0] + k).sum()) for o, k in
+                  zip(offsets, (0, 1, side, side + 1)))
+    assert wrapped > 100  # both address paths are taken
+    for c in range(8):
+        ref = tddgi.oct_bilinear_sample(atlas, probes[:, c], _t(dirs))
+        got = _hoisted_blend(atlas, probes[:, c], offsets, fracs)
+        assert torch.equal(got, ref), f"corner {c}"
+
+
+def test_k5_shared_square_root_equals_the_two_of_the_plain_version():
+    """K5 takes one square root for ``normalize3(-probe_to_point)`` and the
+    distance: the plain version's two clamps (1e-20, 1e-12) differ only
+    below 1e-12, where the distance is the clamp's own root."""
+    rs = np.random.RandomState(22)
+    v = rs.normal(size=(4096, 3)).astype(np.float32)
+    v[:512] *= np.float32(1e-7)  # squared lengths around and below 1e-12
+    v[512:520] = 0.0
+    v = _t(v)
+    dd = v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1] + v[:, 2] * v[:, 2]
+    length = torch.sqrt(torch.clamp(dd, min=1e-20))
+    dist = torch.where(dd >= 1e-12, length, torch.sqrt(torch.tensor(1e-12)))
+    assert torch.equal(dist, torch.sqrt(torch.clamp(dd, min=1e-12)))
+    assert ((dd < 1e-12).sum() > 8) and ((dd >= 1e-12).sum() > 3000)
+    # -normalize3(-v) is v / length: negation is exact
+    from hybrid_rendering_torch.ops.math3d import normalize3
+    assert torch.equal(-normalize3(-v), v / length[:, None])
+
+
+def test_sampler_keeps_its_scalars_and_matches_a_direct_call():
+    """``make_irradiance_sampler`` works the kernel's scalar arguments out
+    once; they are what a direct call works out, in the C signature's
+    order."""
+    cfg, grid, state = _small_grid_state()
+    scalars = tds._scalars(grid, cfg)
+    assert scalars[:5] == (cfg.irradiance_oct_size, cfg.depth_oct_size) + tuple(grid.counts)
+    assert scalars[5:11] == tuple(float(v) for v in grid.start) + tuple(float(v) for v in grid.step)
+    assert scalars[11:] == (cfg.normal_bias, cfg.energy_preservation, int(cfg.visibility_test))
+    assert len(scalars) == 14 and all(isinstance(v, (int, float)) for v in scalars)

@@ -411,3 +411,31 @@ def test_port_blue_noise_mask_is_its_own_copy(monkeypatch):
         np.testing.assert_array_equal(mask, jbluenoise.get_mask())
     finally:
         tbluenoise.get_mask.cache_clear()
+
+
+@pytest.mark.parametrize("helper", ["make_camera", "pixel_grid", "sample2d_grid",
+                                    "make_env_fallbacks"])
+def test_helpers_with_a_device_argument_build_there(helper):
+    """The helpers whose `device` defaults to None (the CPU) put every
+    tensor on the device they are given; the renderer and the passes hand
+    them their own device, so none leaves a CPU tensor on a frame's path.
+    The meta device stands in for the card."""
+    from hybrid_rendering_torch.ops import bluenoise, sh
+    from hybrid_rendering_torch.ops.sky import ProceduralSky
+    from hybrid_rendering_torch.utils import camera
+
+    if helper == "make_camera":
+        cam = camera.make_camera((0.0, 1.0, 5.0), (0.0, 0.0, 0.0), width=8, height=4,
+                                 device="meta")
+        made = [getattr(cam, f.name) for f in dataclasses.fields(cam)]
+    elif helper == "pixel_grid":
+        made = list(camera.pixel_grid(4, 8, "meta"))
+    elif helper == "sample2d_grid":
+        made = list(bluenoise.sample2d_grid(4, 8, 3, dim=1, device="meta"))
+    else:
+        sky = ProceduralSky.create(np.asarray([0.3, 0.8, 0.2], np.float32)).to("meta")
+        irradiance, prefiltered = sh.make_env_fallbacks(sky.radiance, device="meta")
+        d = torch.zeros((4, 3), device="meta")
+        made = [irradiance(d), prefiltered(d, torch.zeros(4, device="meta"))]
+    tensors = [t for t in made if isinstance(t, torch.Tensor)]
+    assert tensors and all(t.device.type == "meta" for t in tensors)

@@ -276,3 +276,168 @@ def test_pack_nodes_refuses_what_does_not_fit():
         tbvh.pack_nodes(lo, hi, torch.tensor([[0, 8, 1]], dtype=torch.int32))
     with pytest.raises(ValueError, match="2\\^28"):
         tbvh.pack_nodes(lo, hi, torch.tensor([[1 << 28, 1, 1]], dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K2's collapsed tree: the 4-wide records and the stack walk over them
+# ---------------------------------------------------------------------------
+
+
+def _port_scene(name):
+    from hybrid_rendering_torch.scene import scenes as tscenes
+
+    return tbvh.make_trace_scene(tscenes.load_scene(name)[0])
+
+
+def _unpack_wide(ts):
+    """(child boxes (M,6,4) f32, child words (M,4) i32) of the wide records."""
+    wide = ts.wide_packed
+    M = wide.shape[0]
+    boxes = wide[:, :6 * tbvh.WIDE].contiguous().view(torch.float32).reshape(M, 6, tbvh.WIDE)
+    return boxes, wide[:, 6 * tbvh.WIDE:]
+
+
+@pytest.mark.parametrize("name", ["shadows_test", "gi_test"])
+def test_wide_records_unpack_to_the_binary_bvh(name):
+    """K2 reads the binary BVH collapsed to 4 children a node, seven
+    16-byte records a node. Every binary leaf is the child of exactly one
+    node with its own box and triangle range, every inner node but the
+    root is the child of exactly one node, every child's box is a box of
+    the binary tree and lies inside its node's, and the walk's stack
+    fits."""
+    ts = _port_scene(name)
+    wide = ts.wide_packed
+    M = wide.shape[0]
+    assert wide.dtype == torch.int32 and tuple(wide.shape) == (M, 7 * tbvh.WIDE)
+    assert wide.is_contiguous() and wide.data_ptr() % 16 == 0
+    boxes, words = _unpack_wide(ts)
+    used = words != tbvh.WIDE_EMPTY
+    assert (used.sum(dim=1) >= 2).all() and (boxes.permute(0, 2, 1)[~used] == 0).all()
+    # used slots come first
+    assert (used.to(torch.int8).diff(dim=1) <= 0).all()
+
+    meta = ts.nodes_meta.to(torch.int64)
+    leaf_rows = torch.nonzero(meta[:, 1] > 0).squeeze(1)
+    by_word = {int(meta[i, 0] * 8 + meta[i, 1]): int(i) for i in leaf_rows}
+    leaf = used & (words < 0)
+    leaf_words = (~words[leaf]).tolist()
+    assert sorted(leaf_words) == sorted(by_word)  # each binary leaf once
+    lo, hi = boxes[:, 0:3].permute(0, 2, 1), boxes[:, 3:6].permute(0, 2, 1)  # (M,4,3)
+    rows = torch.tensor([by_word[w] for w in leaf_words])
+    assert torch.equal(lo[leaf], ts.nodes_min[rows]) and torch.equal(hi[leaf], ts.nodes_max[rows])
+
+    inner = used & (words >= 0)
+    assert sorted(words[inner].tolist()) == list(range(1, M))  # each node but the root once
+    binary = {tuple(b.tolist()) for b in torch.cat([ts.nodes_min, ts.nodes_max], dim=1)[meta[:, 1] == 0]}
+    assert all(tuple(b.tolist()) in binary for b in torch.cat([lo[inner], hi[inner]], dim=1))
+    assert M <= (meta[:, 1] == 0).sum()
+
+    # a node's own box: the root's is the binary root's, a child node's sits in its parent's slot
+    own_lo = torch.empty((M, 3))
+    own_hi = torch.empty((M, 3))
+    own_lo[0], own_hi[0] = ts.nodes_min[0], ts.nodes_max[0]
+    own_lo[words[inner].to(torch.int64)] = lo[inner]
+    own_hi[words[inner].to(torch.int64)] = hi[inner]
+    assert ((lo >= own_lo[:, None, :]) | ~used[..., None]).all()
+    assert ((hi <= own_hi[:, None, :]) | ~used[..., None]).all()
+
+
+def _wide_walk(ts, origin, direction, t_max, t_min=1e-3):
+    """The walk of K2 over the wide records in plain torch, all rays in
+    step: pop a stack entry; a node pushes the children whose box the ray
+    hits, a leaf tests its triangles. The slab and triangle arithmetic is
+    ``traverse``'s. Returns (visibility, the deepest stack)."""
+    boxes, words = _unpack_wide(ts)
+    lo, hi = boxes[:, 0:3].permute(0, 2, 1), boxes[:, 3:6].permute(0, 2, 1)  # (M,4,3)
+    words = words.to(torch.int64)
+    R, T = origin.shape[0], ts.tri_pos.shape[0]
+    inv = tbvh._safe_inv(direction)
+    stack = torch.zeros((R, tbvh.WIDE_STACK), dtype=torch.int64)
+    sp = torch.zeros(R, dtype=torch.int64)
+    blocked = torch.zeros(R, dtype=torch.bool)
+    live = torch.nonzero(~(t_max <= t_min)).squeeze(1)
+    sp[live] = 1  # the root
+    deepest = 1
+    while live.numel():
+        sp[live] -= 1
+        cur = stack[live, sp[live]]
+        at_node = cur >= 0
+        rays, nid = live[at_node], cur[at_node]
+        if rays.numel():
+            o, i = origin[rays][:, None, :], inv[rays][:, None, :]
+            t0, t1 = (lo[nid] - o) * i, (hi[nid] - o) * i
+            tnear = torch.clamp(torch.minimum(t0, t1).amax(dim=2), min=t_min)
+            tfar = torch.minimum(torch.maximum(t0, t1).amin(dim=2), t_max[rays][:, None])
+            hit = (tnear <= tfar) & (words[nid] != tbvh.WIDE_EMPTY)
+            for slot in range(tbvh.WIDE):
+                push = rays[hit[:, slot]]
+                stack[push, sp[push]] = words[nid[hit[:, slot]], slot]
+                sp[push] += 1
+            deepest = max(deepest, int(sp.max()))
+        rays, word = live[~at_node], ~cur[~at_node]
+        if rays.numel():
+            first, count = word >> 3, word & 7
+            o, d = origin[rays], direction[rays]
+            for k in range(tbvh.LEAF_SIZE):
+                tri = ts.tri_pos[torch.clamp(first + k, 0, T - 1)]
+                t, _, _, ok = tbvh._moller(o, d, tri[:, 0], tri[:, 1], tri[:, 2], t_min)
+                blocked[rays] |= ok & (k < count) & (t < t_max[rays])
+        live = live[~blocked[live] & (sp[live] > 0)]
+    return torch.where(blocked, 0.0, 1.0), deepest
+
+
+@pytest.mark.parametrize("name", ["shadows_test", "gi_test"])
+def test_wide_walk_equals_plain_visibility(name):
+    """Any-hit visibility does not depend on the order or the width of the
+    walk: the stack walk over the 4-wide records answers every ray, live
+    or dead, as the skip-link walk over the binary tree does."""
+    ts = _port_scene(name)
+    rs = np.random.RandomState(11)
+    n = 4096
+    lo, hi = ts.nodes_min[0].numpy(), ts.nodes_max[0].numpy()
+    ext = hi - lo
+    o = rs.uniform(lo - 0.2 * ext, hi + 0.2 * ext, (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    cent = ts.tri_pos.numpy().mean(axis=1)
+    k = n // 2
+    d[:k] = cent[rs.randint(0, cent.shape[0], k)] + rs.normal(scale=0.05, size=(k, 3)) * ext - o[:k]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    # rays from inside leaf boxes, axis-parallel rays, unbounded and dead rays
+    leaves = (ts.nodes_meta[:, 1] > 0).numpy()
+    centers = ((ts.nodes_min + ts.nodes_max) * 0.5).numpy()[leaves]
+    o[k:k + 256] = centers[rs.randint(0, centers.shape[0], 256)]
+    d[k + 256:k + 320] = np.eye(3, dtype=np.float32)[rs.randint(0, 3, 64)]
+    t_max = np.where(rs.uniform(size=n) < 0.5, 1e4, rs.uniform(0.05, 1.0, n) * ext.max())
+    t_max[rs.uniform(size=n) < 0.1] = 0.0
+    t_max[rs.uniform(size=n) < 0.05] = np.inf
+    o, d, t_max = _t(o), _t(d), _t(t_max.astype(np.float32))
+    ref = tbvh.visibility_plain(ts, o, d, t_max)
+    got, deepest = _wide_walk(ts, o, d, t_max)
+    assert torch.equal(got, ref)
+    assert 0.05 < ref[t_max > 0].mean() < 0.95
+    assert deepest <= tbvh.WIDE_STACK
+
+
+def test_pack_wide_nodes_edge_trees():
+    """A one-leaf tree becomes a root with that leaf as its only child; a
+    tree too deep for the kernel's stack is refused."""
+    lo, hi = torch.zeros((1, 3)), torch.ones((1, 3))
+    one = tbvh.pack_wide_nodes(lo, hi, torch.tensor([[0, 3, 1]], dtype=torch.int32))
+    assert tuple(one.shape) == (1, 7 * tbvh.WIDE)
+    assert one[0, 24:].tolist() == [~3, tbvh.WIDE_EMPTY, tbvh.WIDE_EMPTY, tbvh.WIDE_EMPTY]
+    # a comb: every right child is a leaf, so a wide node keeps one inner
+    # child and three leaves, and a walk can hold three entries a level.
+    # Preorder: the spine inner_0..inner_{D-1}, its last left leaf, then
+    # the right leaves from the deepest up
+    D = 2 * tbvh.WIDE_STACK
+    N = 2 * D + 1
+    meta = np.zeros((N, 3), np.int32)
+    meta[:D, 2] = [N] + [N - i for i in range(1, D)]  # inner_i skips to right leaf i-1
+    meta[D:, 0] = np.arange(D + 1)
+    meta[D:, 1] = 1
+    meta[D:, 2] = np.arange(D + 1, N + 1)
+    size = np.concatenate([np.arange(D, 0, -1), np.ones(D + 1)]).astype(np.float32)
+    lo = np.zeros((N, 3), np.float32)
+    hi = np.repeat(size[:, None], 3, axis=1)
+    with pytest.raises(ValueError, match="stack entries"):
+        tbvh.pack_wide_nodes(_t(lo), _t(hi), _t(meta))
