@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only   (K1-K5 checks and edge cases;
-                                            no result line)
+    python3 chip_smoke.py --kernels-only   (K1-K6′ checks, edge cases and
+                                            times; no result line)
 
 Builds the port's CUDA kernels (K1 closest hit + attributes, K2 any-hit,
 K3 à-trous chain, K4 bilateral blur, K5 DDGI irradiance sampler, K6 dense
@@ -17,13 +17,18 @@ the shadow plane (K3, C=1), the reflections' temporal plane (K3, C=3) and
 the HDR frame (K3, C=3); the AO plane (K4); the probe bounce, the screen
 sample and the reflections' merged DDGI evaluation (K5); and, recorded
 from the frame with ``tracer_method="flash_dense"``, the same ray sites
-for K6 and K6′, with K6 also held against K1. K3, K1/K2 and K5 are also held
-against their plain versions on edge cases (images smaller than a tile or
-its halo, every option of the chain; ray batches that are all dead, all
-blocked or all escaping, of 1, 31, 33 and 129 rays, from inside a leaf's
-box, with t_max = inf; points outside the probe grid on every side, on a
-cage face, with zero normals, without the visibility test, in a 2 x 2 x 2
-grid, at NaN and inf positions). Then it renders the bench
+for K6 and K6′, with K6 also held against K1. K3, K1/K2, K4, K5 and K6 are
+also held against their plain versions on edge cases (images smaller than
+a tile or its halo, every option of the chain; ray batches that are all
+dead, all blocked or all escaping, of 1, 31, 33 and 129 rays, from inside a
+leaf's box, with t_max = inf; all-false and all-true masks, planes one
+pixel wide, radii 1 and 8; points outside the probe grid on every side, on
+a cage face, with zero normals, without the visibility test, in a 2 x 2 x 2
+grid, at NaN and inf positions; K6 in each launch plan on batches of
+1 to 129 rays, all missing, masked, behind the scene, with 300 and 1
+triangles, and its refusal of a negative t_min), and the blue-noise
+sampler's grid (both modes) on the card against the CPU. Then it renders
+the bench
 frame through ``HybridRenderer`` with every kernel counting its launches,
 renders the frame with DDGI and reflections off and the dense frame, holds
 a small moving-camera run on the card against the plain path on the CPU,
@@ -32,14 +37,15 @@ bench's fidelity section (gi_test at 256x256: 32 hybrid frames against a
 96-spp path-traced GT) through both tracers.
 
 Prints the card's name and power limit, which code built the BVH, the registers and
-shared memory of K1-K3 and K5, the time of an empty kernel launched the same
+shared memory of K1-K6′, the time of an empty kernel launched the same
 way (the floor under every kernel time), each kernel's time (CUDA events around calls
 launched one by one into an idle card; for K1-K5 also around calls queued
 behind a short spin of the card, so that no wait for the host is in it)
 beside its plain version's and its bound (the least time the H100 could take for the same
 work: the bytes it must move at 3.35 TB/s or its fp32 operations at 67
 TFLOP/s, whichever is longer), ms/frame of the three
-frames, per-pass times, the device's busy share and launches per frame,
+frames, per-pass times, the device's busy share and launches per frame
+(and the dense frame's device kernel time),
 both fidelity reports, one JSON line with the kernel table, and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and the last line is not printed. Exits non-zero at once
@@ -88,15 +94,22 @@ SHADED_TOL = (1e-3, 0.01)
 LDR_TOL = (1e-3, 0.05)
 LDR_MAX = 0.1
 LDR_MEAN = 1e-3
-# K6/K6′ against their plain versions (bit for bit by design, -fmad=false)
-K6_MIN_AGREE = 0.9999
-K6_TOL = 1e-5
+# K6 against its plain version: bit for bit (-fmad=false, the exact test
+# decides every pair): every tri_id equal, and t, u, v and the attribute
+# row equal bit for bit
+K6_MIN_AGREE = 1.0
+# K6′ against its plain version (bit for bit by design, -fmad=false)
+K6P_MIN_AGREE = 0.9999
 # K6 against K1 on the primary rays: the affine product loses precision
 # for rays that graze or start near large walls, so a few hits flip
 K6_K1_MIN_AGREE = 0.999
 T_MIN = 1e-3  # the tracers' t_min
 # kernels whose registers, spills and shared memory are printed from nvcc's log
-PTXAS_KERNELS = ("closest_kernel", "anyhit", "atrous_tile", "ddgi_sample_kernel")
+PTXAS_KERNELS = ("closest_kernel", "anyhit", "atrous_tile", "blur_tile", "ddgi_sample_kernel",
+                 "flash_kernel", "k6_")
+# K6's launch plans held to the plain version on its edge cases beside
+# the wrapper's own choice: (rays a thread, parts of the split)
+K6_EDGE_PLANS = ((1, 1), (2, 1), (1, 8), (2, 8))
 
 # bounds: published H100 SXM peaks (NVIDIA's data sheet; dense fp32
 # outside the tensor cores)
@@ -158,6 +171,37 @@ def bound(nbytes, ops):
     ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     ms_ops = ops / FP32_OPS_PER_S * 1e3
     return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops, "operations")
+
+
+def device_launches(fn):
+    """CUDA kernels (and memsets) one call of `fn` puts on the card, by
+    torch.profiler. The first profiler session of a process starts the
+    card's tracing and can miss a kernel (K4's one launch read 0 once on an
+    H100), so a first session runs untallied."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    if not device_launches.tracing_started:
+        with profile(activities=[ProfilerActivity.CUDA]):
+            fn()
+            torch.cuda.synchronize()
+        device_launches.tracing_started = True
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+device_launches.tracing_started = False
+
+
+def bits_equal(a, b):
+    """Equal bit for bit (NaN included)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
 
 
 def share_equal(a, b):
@@ -509,6 +553,9 @@ def check_kernels(r, wf, label, timing):
     if timing:
         out["K4"] = time_site("K4", "AO", lambda: stencil.bilateral_blur(*args, radius=radius),
                               20, plain_ms, blur_bound(args, radius))
+        n = device_launches(lambda: stencil.bilateral_blur(*args, radius=radius))
+        print(f"K4: {n} CUDA launch(es) a call (torch.profiler)")
+        check(n == 1, f"K4 takes {n} launches a call")
 
     for name, call in wf["k5"].items():
         err, plain_ms, launch = check_k5(r, call, label, name)
@@ -587,6 +634,45 @@ def k3_edge_cases(dev):
             check(torch.equal(got[0], args[0]) and torch.equal(got[2], args[1]),
                   "K3 with an all-false mask changed a pixel")
         worst = max(worst, max(errs))
+    return worst
+
+
+def k4_edge_cases(dev):
+    """K4 against its plain version where its tiles meet the image's edge
+    or exceed it: all-false and all-true masks, planes one pixel wide,
+    planes smaller than a tile, radii 1 and 8; r = 0 has no Gaussian, and
+    both refuse it."""
+    from hybrid_rendering_torch.ops import stencil
+
+    cases = [  # (H, W, radius, mask)
+        (540, 960, 4, "none"), (540, 960, 4, "all"), (1, 960, 4, "random"),
+        (540, 1, 4, "random"), (1, 1, 4, "all"), (5, 7, 4, "random"), (3, 3, 8, "all"),
+        (20, 30, 8, "random"), (135, 241, 8, "random"), (135, 241, 1, "random"),
+    ]
+    worst = 0.0
+    for i, (Hh, Ww, r, mask) in enumerate(cases):
+        img, _, n, depth, m = random_planes(Hh, Ww, 1, dev, seed=300 + i,
+                                            mask="all" if mask == "random" else mask)
+        if mask == "random":
+            g = torch.Generator(device="cpu").manual_seed(400 + i)
+            m = (torch.rand((Hh, Ww), generator=g) > 0.3).to(dev)
+        got = stencil.bilateral_blur(img, n, depth, m, radius=r)
+        ref = stencil.bilateral_blur_plain(img, n, depth, m, radius=r)
+        err = (got - ref).abs().max().item()
+        print(f"[edge] K4 {Hh}x{Ww} r={r} mask {mask}: max |d| {err:.3g}")
+        check(bool(torch.isfinite(got).all()), f"K4 edge case {i}: non-finite")
+        check(err <= STENCIL_TOL, f"K4 edge case {i}: max abs difference {err}")
+        if mask == "none":
+            check(torch.equal(got, img), "K4 with an all-false mask changed a pixel")
+        worst = max(worst, err)
+    img, _, n, depth, m = random_planes(8, 8, 1, dev, seed=399)
+    for fn in (stencil.bilateral_blur, stencil.bilateral_blur_plain):
+        try:
+            fn(img, n, depth, m, radius=0)
+        except (ValueError, ZeroDivisionError) as e:
+            print(f"[edge] K4 r=0: {fn.__name__} refuses it ({type(e).__name__})")
+        else:
+            raise AssertionError(f"{fn.__name__} took r = 0")
     return worst
 
 
@@ -742,6 +828,21 @@ def k5_edge_cases(dev):
     return worst
 
 
+def sampler_check(dev):
+    """The blue-noise grid at 1920x1080 on the card against the CPU, both
+    modes, bit for bit (integer and float32 ops of one rounding each)."""
+    from hybrid_rendering_torch.ops import bluenoise
+
+    for mode in bluenoise.MODES:
+        for dim in (0, 1, 2):
+            for frame in (0, 7, 2**20 + 3):
+                card = bluenoise.sample2d_grid(H, W, frame, dim, device=dev, mode=mode)
+                cpu = bluenoise.sample2d_grid(H, W, frame, dim, mode=mode)
+                check(all(bits_equal(a.cpu(), b) for a, b in zip(card, cpu)),
+                      f"sampler {mode} dim {dim} frame {frame}: card and CPU differ")
+        print(f"[sampler] {mode} {W}x{H}, dims 0-2, frames 0, 7, 2**20+3: card equals CPU")
+
+
 def launch_floor():
     """The time of a kernel that does no work (one thread), launched through
     the same ctypes path as K1-K6′: what the card and the wrapper take for
@@ -770,6 +871,8 @@ def kernel_phase(dev):
     k1_edge_cases(r.trace_scene, wf["primary"], dev)
     k2_edge_cases(r.trace_scene, wf["primary"], dev)
     errs0["K3"] = max(errs0["K3"], k3_edge_cases(dev))
+    errs0["K4"] = max(errs0["K4"], k4_edge_cases(dev))
+    sampler_check(dev)
     errs0["K5"] = max(errs0["K5"], k5_edge_cases(dev))
     del wf
     _, state = r.render_frame(state, cam0, light)
@@ -823,15 +926,16 @@ def dense_ops(fs, o, d, tm, any_hit):
 
 def hold_hit(hit, ref, name):
     """tri_id agreement of two Hits and the largest |d(t,u,v)| where the
-    ids agree, held to the K6 bars. Returns (share, err, agree)."""
+    ids agree, held to the K6 bars (every id equal, t, u, v bit for bit).
+    Returns (share, err, agree)."""
     agree = hit.tri_id == ref.tri_id
     share = share_equal(hit.tri_id, ref.tri_id)
     err = max((getattr(hit, f)[agree] - getattr(ref, f)[agree]).abs().max().item()
-              for f in ("t", "u", "v"))
+              if agree.any() else 0.0 for f in ("t", "u", "v"))
     check(share >= K6_MIN_AGREE, f"{name}: tri_id agrees on {share} of rays")
     for f in ("t", "u", "v"):
-        torch.testing.assert_close(getattr(hit, f)[agree], getattr(ref, f)[agree],
-                                   rtol=K6_TOL, atol=K6_TOL, msg=f"{name} {f}")
+        check(bits_equal(getattr(hit, f)[agree], getattr(ref, f)[agree]),
+              f"{name}: {f} differs bit for bit")
     return share, err, agree
 
 
@@ -847,24 +951,81 @@ def check_k6(fs, rays, label, name, timing):
     (ref, ref_attrs), plain_ms = wall_ms(
         lambda: flashtrace.flash_closest_hit_attrs_plain(fs, o, d, tm))
     share, err, agree = hold_hit(hit, ref, f"K6 {name}")
-    check(torch.equal(attrs[agree], ref_attrs[agree]), f"K6 {name}: attribute rows differ")
+    check(torch.equal(attrs, ref_attrs), f"K6 {name}: attribute rows differ")
     share0, err0, _ = hold_hit(flashtrace.flash_closest_hit(fs, o, d, tm),
                                flashtrace.flash_closest_hit_plain(fs, o, d, tm),
                                f"K6 without attributes, {name}")
-    print(f"[{label}] K6 dense closest+attrs, {name}: {R} rays, "
-          f"{(ref.tri_id >= 0).sum().item()} hits, tri_id agree {share:.6f}, "
-          f"max |d(t,u,v)| {err:.3g}; without attributes: tri_id agree {share0:.6f}, "
-          f"max |d(t,u,v)| {err0:.3g}")
+    print(f"[{label}] K6 dense closest+attrs, {name}: {R} rays "
+          f"({(tm > T_MIN).sum().item()} live), {(ref.tri_id >= 0).sum().item()} hits, "
+          f"tri_id agree {share:.6f}, max |d(t,u,v)| {err:.3g}, rows equal; without "
+          f"attributes: tri_id agree {share0:.6f}, max |d(t,u,v)| {err0:.3g}")
     err = max(err, err0)
     timed = None
     if timing:
-        ms = cuda_ms(lambda: flashtrace.flash_closest_hit_attrs(fs, o, d, tm), 10)
+        def run():
+            return flashtrace.flash_closest_hit_attrs(fs, o, d, tm)
+
+        ms, queued = cuda_ms(run, 10), cuda_ms(run, 10, queued=True)
         bnd = bound(R * (28 + 112) + fs.num_tris * (4 * 20 + 4 * 24),
                     dense_ops(fs, o, d, tm, any_hit=False))
-        print(f"K6 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+        rpt = flashtrace.rays_per_thread(R)
+        parts = flashtrace.split_parts(R, rpt, fs.coef.shape[0] // flashtrace.TILE,
+                                       flashtrace._resident_blocks(torch.cuda.current_device(), rpt))
+        print(f"K6 {name}: kernel {ms:.3f} ms ({queued:.3f} ms queued), plain {plain_ms:.3f} ms, "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}), {device_launches(run)} CUDA launches a call "
+              f"(the wrapper's features and outputs included); {rpt} ray(s) a thread, the "
+              f"triangles in {parts} part(s)")
         timed = (ms,) + bnd
     return err, plain_ms, timed, hit
+
+
+def k6_edge_cases(fs, scene, primary, dev):
+    """K6 against its plain version, bit for bit, in every launch plan:
+    batches of 1, 31, 33 and 129 rays, all rays missing, t_max <= t_min,
+    the whole ray set behind the scene looking away, t_max = inf, a
+    triangle count that is no multiple of the 128-triangle tile, and one
+    triangle."""
+    from hybrid_rendering_torch.ops import bvh, flashtrace
+
+    o, d, tm = (x[::10].contiguous() for x in primary)  # every 10th primary ray
+    ref = flashtrace.flash_closest_hit_plain(fs, o, d, tm)
+    hits = ref.tri_id >= 0
+    check(bool(hits.any()) and bool((~hits).any()), "K6 edge cases: no mix of hits and misses")
+    mixed = torch.nonzero(hits)[0, 0].item()
+    attrs = bvh.attr_table(scene)
+    top = torch.mode(ref.tri_id[hits]).values.item()  # the triangle most rays hit
+    small = {300: flashtrace.make_flash_scene(scene.tri_pos[:300].contiguous(),
+                                              attrs[:300].contiguous()),
+             1: flashtrace.make_flash_scene(scene.tri_pos[top:top + 1].contiguous(),
+                                            attrs[top:top + 1].contiguous())}
+    cases = {"all missing": (fs, o[~hits], d[~hits], tm[~hits]),
+             "t_max <= t_min": (fs, o, d, torch.where(hits, T_MIN, 0.0).to(tm.dtype)),
+             "behind the scene, looking away": (fs, fs.center + 1e3 * d, d, tm),
+             "t_max = inf": (fs, o, d, torch.full_like(tm, float("inf"))),
+             "300 triangles": (small[300], o, d, tm),
+             "1 triangle": (small[1], o, d, tm)}
+    for n in (1, 31, 33, 129):
+        sl = slice(max(mixed - n // 2, 0), max(mixed - n // 2, 0) + n)
+        cases[f"{n} rays"] = (fs, o[sl], d[sl], tm[sl])
+    for name, (fs_, o_, d_, tm_) in cases.items():
+        o_, d_, tm_ = (x.contiguous() for x in (o_, d_, tm_))
+        want, want_attrs = flashtrace.flash_closest_hit_attrs_plain(fs_, o_, d_, tm_)
+        for plan in (None,) + K6_EDGE_PLANS:
+            got, got_attrs = flashtrace._launch_closest(fs_, o_, d_, tm_, T_MIN, True, plan)
+            same = all(bits_equal(getattr(got, f), getattr(want, f))
+                       for f in ("t", "tri_id", "u", "v")) and bits_equal(got_attrs, want_attrs)
+            check(same, f"K6 edge case {name}, plan {plan or 'of the wrapper'} differs")
+        check(bits_equal(flashtrace.flash_closest_hit(fs_, o_, d_, tm_).t, want.t),
+              f"K6 edge case {name}: the wrapper without attributes differs")
+        print(f"[edge] K6 {name}: {o_.shape[0]} rays, {fs_.num_tris} triangles, "
+              f"{(want.tri_id >= 0).sum().item()} hits, every plan equal to the plain "
+              f"version bit for bit")
+    try:  # the merge key orders t > 0 only (csrc/flashtrace.cu)
+        flashtrace.flash_closest_hit(fs, o[:4], d[:4], tm[:4], t_min=-1.0)
+    except ValueError as e:
+        print(f"[edge] K6 t_min = -1: refused ({e})")
+    else:
+        check(False, "K6 took a negative t_min")
 
 
 def check_k6p(fs, rays, label, name, timing):
@@ -882,13 +1043,14 @@ def check_k6p(fs, rays, label, name, timing):
     err = (vis[live] - ref[live]).abs().max().item() if live.any() else 0.0
     print(f"[{label}] K6′ dense any-hit, {name}: {R} rays ({live.sum().item()} live), "
           f"agree {share:.6f}, unoccluded {vis[live].mean().item():.4f}")
-    check(share >= K6_MIN_AGREE, f"K6′ {name}: agrees on {share} of live rays")
+    check(share >= K6P_MIN_AGREE, f"K6′ {name}: agrees on {share} of live rays")
     check(bool((vis[~live] == 0).all()), f"K6′ {name}: a masked ray is not blocked")
     timed = None
     if timing:
         ms = cuda_ms(lambda: flashtrace.flash_visibility(fs, o, d, tm), 10)
+        queued = cuda_ms(lambda: flashtrace.flash_visibility(fs, o, d, tm), 10, queued=True)
         bnd = bound(R * (28 + 4) + fs.num_tris * 4 * 20, dense_ops(fs, o, d, tm, any_hit=True))
-        print(f"K6′ {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        print(f"K6′ {name}: kernel {ms:.3f} ms ({queued:.3f} ms queued), plain {plain_ms:.3f} ms, "
               f"bound {bnd[0]:.4f} ms ({bnd[1]})")
         timed = (ms,) + bnd
     return err, plain_ms, timed
@@ -935,8 +1097,10 @@ def dense_phase(dev):
     check(isinstance(fs, flashtrace.FlashScene), "the dense renderer holds no FlashScene")
     state = r.create_state()
     cam0 = r.make_camera(camkw["eye"], camkw["target"], 0)
-    errs0, times = check_dense(fs, ts, wavefronts(r, state, cam0, light), "dense frame 0",
-                               timing=True)
+    wf = wavefronts(r, state, cam0, light)
+    errs0, times = check_dense(fs, ts, wf, "dense frame 0", timing=True)
+    k6_edge_cases(fs, r.scene, wf["primary"], dev)
+    del wf
     _, state = r.render_frame(state, cam0, light)
     eye1 = tuple(np.asarray(camkw["eye"]) + [EYE_STEP, 0.0, 0.0])
     cam1 = r.make_camera(eye1, camkw["target"], 1, prev_view_proj=cam0.view_proj)
@@ -1135,19 +1299,12 @@ def pass_timers(times):
             setattr(mod, name, fn)
 
 
-def profile_phase(dev, frames=5):
-    """Per-pass ms (a synchronize around each pass) and device busy share
-    (torch.profiler over `frames` steady frames) of the bench frame."""
+def device_time(r, light, camkw, frames):
+    """torch.profiler over `frames` steady frames of `r`: (wall ms/frame
+    profiled, device kernel ms/frame, kernel launches/frame, the kernel
+    rows)."""
     from torch.profiler import ProfilerActivity, profile
 
-    r, light, camkw = build(W, H, dev)
-    ms, _ = time_frames(r, light, camkw, frames)
-    times = {}
-    with pass_timers(times):
-        ms_sync, _ = time_frames(r, light, camkw, frames)
-    print(f"per-pass (synchronized, {ms_sync:.2f} ms/frame in this mode):")
-    for name, total in sorted(times.items(), key=lambda kv: -kv[1]):
-        print(f"  {name}: {total / (frames + 1):.3f} ms")
     state = r.create_state()
     cam = r.make_camera(camkw["eye"], camkw["target"], 0)
     _, state = r.render_frame(state, cam, light)
@@ -1164,10 +1321,34 @@ def profile_phase(dev, frames=5):
                 if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels_) / 1e3 / frames
     launches = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
-    print(f"profiler over {frames} frames: wall {wall / frames:.2f} ms/frame profiled, "
+    return wall / frames, device_ms, launches / frames, kernels_
+
+
+def profile_phase(dev, frames=5):
+    """Per-pass ms (a synchronize around each pass) and device busy share
+    (torch.profiler over `frames` steady frames) of the bench frame; the
+    device kernel time of the dense frame."""
+    r, light, camkw = build(W, H, dev)
+    ms, _ = time_frames(r, light, camkw, frames)
+    times = {}
+    with pass_timers(times):
+        ms_sync, _ = time_frames(r, light, camkw, frames)
+    print(f"per-pass (synchronized, {ms_sync:.2f} ms/frame in this mode):")
+    for name, total in sorted(times.items(), key=lambda kv: -kv[1]):
+        print(f"  {name}: {total / (frames + 1):.3f} ms")
+    wall, device_ms, launches, kernels_ = device_time(r, light, camkw, frames)
+    print(f"profiler over {frames} frames: wall {wall:.2f} ms/frame profiled, "
           f"device kernel time {device_ms:.2f} ms/frame = {device_ms / ms:.1%} of the "
-          f"unprofiled {ms:.2f} ms/frame, {launches / frames:.0f} kernel launches per frame")
+          f"unprofiled {ms:.2f} ms/frame, {launches:.0f} kernel launches per frame")
     for e in sorted(kernels_, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3 / frames:8.3f} ms/frame  "
+              f"{e.count // frames:5d}x  {e.key[:90]}")
+    del r
+    r, light, camkw = build(W, H, dev, tracer_method="flash_dense")
+    wall, device_ms, launches, kernels_ = device_time(r, light, camkw, frames)
+    print(f"profiler over {frames} dense frames: wall {wall:.2f} ms/frame profiled, device "
+          f"kernel time {device_ms:.2f} ms/frame, {launches:.0f} kernel launches per frame")
+    for e in sorted(kernels_, key=lambda e: -e.self_device_time_total)[:4]:
         print(f"  {e.self_device_time_total / 1e3 / frames:8.3f} ms/frame  "
               f"{e.count // frames:5d}x  {e.key[:90]}")
 
@@ -1199,7 +1380,7 @@ def main() -> int:
     kernels.lib()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s ({kernels.LIB_PATH})")
     for line in log.splitlines():
-        # registers, shared memory and spills of K1-K3 and K5
+        # registers, shared memory and spills of K1-K6′
         if "Compiling" in line and any(k in line for k in PTXAS_KERNELS):
             keep = 2
             print("  " + line.strip()[:160])
@@ -1208,11 +1389,11 @@ def main() -> int:
             print("    " + line.strip())
 
     timed = kernel_phase(dev)
-    if "--kernels-only" in sys.argv[1:]:
-        # K1-K5 checks and edge cases, then stop: a short call for work on
-        # a kernel; prints no result line
-        return 0
     timed.update(dense_phase(dev))
+    if "--kernels-only" in sys.argv[1:]:
+        # the K1-K6′ checks, edge cases and times, then stop: a short call
+        # for work on a kernel; prints no result line
+        return 0
     counters = {"K1": (bvh.closest_hit_attrs,), "K2": (bvh.visibility,),
                 "K3": (stencil.atrous_chain,), "K4": (stencil.bilateral_blur,),
                 "K5": (ddgi_sample.sample_irradiance,),

@@ -50,12 +50,41 @@
 //     edge reproduces filters.shift2d's image-edge clamp exactly; positions
 //     outside the image are neither loaded nor computed.
 //
-// K4 reads its taps straight from device memory (one thread a pixel, the
-// footprint of a warp served by L1/L2) and keeps the plain version's
-// operation order with explicit unfused multiplies and adds, so it still
-// rounds like ops/filters.py bilateral_blur_separable.
+// K4 on the H100. Its bound is bytes (21 B in and 4 B out a pixel), but a
+// tap's weight costs a powf (normal^32: ~70 instructions), an expf and an
+// IEEE division, all kept for bit parity with ops/filters.py
+// bilateral_blur_separable, so it is bound by instruction issue. The parent
+// ran two launches (vertical into a full-size plane, then horizontal) and
+// evaluated 18 weights a pixel. One launch now, one block a tile:
+//   - a warp's 32 lanes span the tile's columns plus an R-pixel halo on
+//     each side (a tile is 32 - 2R wide and BLUR_TILE_H high), so a lane
+//     indexes a column of every shared-memory plane and no thread divides;
+//     the tile plus its halo (image, normal and depth; clamped to the
+//     image) is loaded once;
+//   - the vertical pass runs on the tile's rows at all 32 columns into
+//     shared memory, the horizontal pass reads it there and applies the
+//     mask: no intermediate plane in device memory;
+//   - a weight depends on its pair of pixels only: n_p . n_q sums the same
+//     three products as n_q . n_p, and |z_p - z_q| = |z_q - z_p|, bit for
+//     bit. So (wn, wz) of each unordered pair at distance 1..R along an
+//     axis is computed once (a job list in shared memory: a warp a row of
+//     pairs) and read from both ends: ~13 evaluations a pixel at R = 4;
+//     a pixel's pair with itself is evaluated too (it is not 1 where a
+//     depth is infinite);
+//   - weights exact by IEEE 754's rules skip their transcendental: pow(1,
+//     y) = 1, pow(+-0, y > 0), exp(-0) = 1, x / 1 = x (axis-aligned normals
+//     and the sky's equal depths make those common); the exponent 32 of
+//     every preset is a constant of the code;
+//   - taps clamp in image coordinates and then index the tile (as K3), so
+//     block edges reproduce filters.shift2d exactly;
+//   - a tile without a masked-in pixel copies its input and stops;
+//   - rounding: each tap is (g_i * wn) * wz, sum_c and sum_w add the taps
+//     left to right, and the final division is IEEE, every multiply and
+//     add written unfused (this file compiles with -fmad=true), so the
+//     kernel rounds like the plain version.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 constexpr int MAX_BLUR_RADIUS = 8;  // ops/kernels.py MAX_BLUR_RADIUS
@@ -68,7 +97,6 @@ struct GaussTaps {
 
 namespace {
 
-constexpr int BX = 32, BY = 8;
 constexpr int K3_MAX_THREADS = 512;
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may ask for
 constexpr float LOG2E = 1.4426950408889634f;
@@ -325,41 +353,226 @@ int launch_atrous_radius(int radius, const AtrousLaunch& a, int threads, size_t 
   return (int)cudaErrorInvalidValue;
 }
 
-__device__ __forceinline__ float ndot(const float* __restrict__ n, int p, int q) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(__ldg(n + 3 * p), __ldg(n + 3 * q)),
-                             __fmul_rn(__ldg(n + 3 * p + 1), __ldg(n + 3 * q + 1))),
-                   __fmul_rn(__ldg(n + 3 * p + 2), __ldg(n + 3 * q + 2)));
+// Edge-stopping weights of a pair of pixels (a, b), each a float4 of
+// normal.xyz and depth: (clamp(n_a . n_b)^power, exp(-|z_a - z_b| / phi)),
+// rounded as filters.normal_weight / depth_weight round them. Where the
+// answer is exact by IEEE 754's rules the transcendental is skipped: pow(1,
+// y) = 1; pow(+-0, y > 0) = +0, or the zero itself where y is an odd
+// integer; exp(-0 / phi) = 1 for phi > 0 (the wrapper clamps phi to
+// 1e-6); and x / 1 = x. Axis-aligned normals and the sky make those
+// common.
+__device__ __forceinline__ float2 blur_pair(float4 a, float4 b, float phi, float power,
+                                            bool odd_power) {
+  const float nd = __fadd_rn(__fadd_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)),
+                             __fmul_rn(a.z, b.z));
+  const float c = fminf(fmaxf(nd, 0.0f), 1.0f);
+  const float wn = c == 1.0f ? 1.0f
+                   : (c == 0.0f && power > 0.0f) ? (odd_power ? c : 0.0f)
+                                                 : powf(c, power);
+  const float dz = fabsf(a.w - b.w);
+  // x / 1 = x: the division is skipped at phi = 1 (the AO pass's)
+  return make_float2(wn, dz == 0.0f ? 1.0f : expf(phi == 1.0f ? -dz : -dz / phi));
 }
 
-// One axis of the bilateral blur; the guides (normal, depth) are always the
-// full-resolution planes at the output pixel and its taps. With a mask
-// (the second pass), masked-out pixels keep the original image.
-template <bool VERTICAL>
-__global__ void __launch_bounds__(BX * BY) blur_axis_kernel(
-    const float* __restrict__ src, const float* __restrict__ normal,
-    const float* __restrict__ depth, int H, int W, int radius, GaussTaps g,
-    float depth_phi, float normal_power, const float* __restrict__ keep,
-    const uint8_t* __restrict__ mask, float* __restrict__ dst) {
-  const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const int p = y * W + x;
-  if (mask != nullptr && !mask[p]) {
-    dst[p] = __ldg(keep + p);
+// K4's tiles: a warp's 32 lanes span the tile's columns plus an R-pixel
+// halo on each side, so a tile is 32 - 2R pixels wide, and a lane indexes
+// a column of every shared-memory plane with no division. BLUR_TILE_H
+// rows a tile and BLUR_THREADS threads a block: the fastest of the plans
+// timed at the AO site on an H100 (PERF.md)
+constexpr int BLUR_TILE_H = 8;
+constexpr int BLUR_THREADS = 256;
+static_assert(BLUR_TILE_H + 2 * MAX_BLUR_RADIUS <= 255, "a K4 job packs its row in 8 bits");
+template <int R>
+struct BlurTile {
+  static constexpr int RW = 32;           // loaded columns
+  static constexpr int TW = RW - 2 * R;   // output columns
+};
+
+// Shared-memory layout of one K4 block (TH = BLUR_TILE_H output rows,
+// radius R): the region of the tile plus an R halo, 32 x (TH + 2R), as G
+// (normal, depth) and I (image); the pair weights along y (R x (TH + R) x
+// 32, the pair's upper end's row indexes them), along x (R x TH x 32), of
+// each pixel with itself (TH x 32); the vertical pass (TH x 32); the
+// block's job list (one int a job).
+template <int R>
+struct BlurSmem {
+  static constexpr int TH = BLUR_TILE_H, RH = TH + 2 * R, nG = 32 * RH,
+                       nPV = R * (TH + R) * 32, nPH = R * TH * 32, nS = TH * 32,
+                       jobs = R * TH + R * (R + 1) / 2 + R * TH + TH;
+  static constexpr size_t bytes =
+      (size_t)nG * 20 + (size_t)(nPV + nPH + nS) * 8 + (size_t)nS * 4 + (size_t)jobs * 4;
+};
+
+struct BlurLaunch {
+  const float* img;
+  const float* normal;
+  const float* depth;
+  const uint8_t* mask;
+  float* out;
+  int H, W;
+  float depth_phi, normal_power;
+  bool odd_power;  // normal_power is an odd integer
+  GaussTaps g;
+};
+
+// A job of the pair phase: kind (0: along y, 1: along x, 2: a pixel with
+// itself), distance d and row, packed; a warp runs a job at its 32 columns
+enum { JOB_V = 0, JOB_H = 1, JOB_S = 2 };
+__device__ __forceinline__ int blur_job(int kind, int d, int row) {
+  return (kind << 16) | (d << 8) | row;
+}
+
+// P32: normal_power is 32 (every preset), and powf's exponent is a
+// constant of the code
+template <int R, bool P32>
+__global__ void __launch_bounds__(BLUR_THREADS) blur_tile_kernel(const BlurLaunch a) {
+  extern __shared__ float4 blur_smem[];
+  constexpr int RW = BlurTile<R>::RW, TW = BlurTile<R>::TW;
+  using L = BlurSmem<R>;
+  constexpr int TH = L::TH, THr = TH + R, nw = BLUR_THREADS / 32;
+  const int H = a.H, W = a.W;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int bx0 = blockIdx.x * TW, by0 = blockIdx.y * TH;
+  const int tw = min(TW, W - bx0), th = min(TH, H - by0);  // the tile's pixels in the image
+  const int rx0 = bx0 - R, ry0 = by0 - R;
+  float4* G = blur_smem;
+  float2* PV = (float2*)(G + L::nG);
+  float2* PH = PV + L::nPV;
+  float2* S = PH + L::nPH;
+  float* I = (float*)(S + L::nS);
+  float* V = I + L::nG;
+  int* jobs = (int*)(V + L::nS);
+
+  // a tile with no masked-in pixel keeps its input
+  bool any = false;
+  for (int ty = warp; ty < th; ty += nw)
+    any |= lane < tw && a.mask[(by0 + ty) * W + bx0 + lane] != 0;
+  if (!__syncthreads_or(any)) {
+    for (int ty = warp; ty < th; ty += nw) {
+      if (lane < tw) {
+        const int p = (by0 + ty) * W + bx0 + lane;
+        a.out[p] = __ldg(a.img + p);
+      }
+    }
     return;
   }
-  const float z0 = __ldg(depth + p);
-  float sum_c = 0.0f, sum_w = 0.0f;
-  for (int i = 0; i < 2 * radius + 1; ++i) {
-    const int o = i - radius;  // shift2d by +o reads index - o
-    const int q = VERTICAL ? clampi(y - o, H - 1) * W + x : y * W + clampi(x - o, W - 1);
-    const float wn = powf(fminf(fmaxf(ndot(normal, p, q), 0.0f), 1.0f), normal_power);
-    const float wz = expf(-fabsf(z0 - __ldg(depth + q)) / depth_phi);
-    const float w = g.w[i] * wn * wz;
-    sum_c = __fadd_rn(sum_c, __fmul_rn(__ldg(src + q), w));
-    sum_w = sum_w + w;
+
+  // the part of the region that lies in the image; lane = column
+  const int x = rx0 + lane;
+  const int cx0 = max(rx0, 0), cx1 = min(bx0 + tw + R, W);
+  const bool col_in = x >= cx0 && x < cx1;
+  const int cy0 = max(ry0, 0), cy1 = min(by0 + th + R, H);
+  for (int y = cy0 + warp; y < cy1; y += nw) {
+    if (col_in) {
+      const int p = y * W + x, s = (y - ry0) * RW + lane;
+      G[s] = make_float4(__ldg(a.normal + 3 * p), __ldg(a.normal + 3 * p + 1),
+                         __ldg(a.normal + 3 * p + 2), __ldg(a.depth + p));
+      I[s] = __ldg(a.img + p);
+    }
   }
-  dst[p] = sum_c / fmaxf(sum_w, 1e-8f);
+  // the job list: pairs along y at distance d on rows [R - d, R + TH) of
+  // the region (the lower end's), pairs along x on the tile's rows, each
+  // pixel with itself on the tile's rows
+  for (int t = threadIdx.x; t < L::jobs; t += BLUR_THREADS) {
+    int j = t, job = 0;
+    for (int d = 1; d <= R; ++d) {
+      if (j >= 0 && j < TH + d) job = blur_job(JOB_V, d, R - d + j);
+      j -= TH + d;
+    }
+    if (j >= 0 && j < R * TH) job = blur_job(JOB_H, j / TH + 1, j % TH);
+    j -= R * TH;
+    if (j >= 0) job = blur_job(JOB_S, 0, j);
+    jobs[t] = job;
+  }
+  __syncthreads();
+
+  // every pair weight the two passes read, once; a warp a job
+  const float phi = a.depth_phi, pw = P32 ? 32.0f : a.normal_power;
+  const bool odd = P32 ? false : a.odd_power;
+  for (int t = warp; t < L::jobs; t += nw) {
+    const int job = jobs[t];
+    const int kind = job >> 16, d = (job >> 8) & 0xff, row = job & 0xff;
+    if (kind == JOB_V) {  // (y, y + d), y = ry0 + row in [by0 - d, by0 + th)
+      const int y = ry0 + row;
+      if (col_in && y >= max(by0 - d, 0) && y < min(by0 + th, H - d)) {
+        const int s = row * RW + lane;
+        PV[((d - 1) * THr + row) * RW + lane] = blur_pair(G[s], G[s + d * RW], phi, pw, odd);
+      }
+    } else if (kind == JOB_H) {  // (x, x + d), x in [bx0 - d, bx0 + tw), tile row `row`
+      if (row < th && x >= max(bx0 - d, 0) && x < min(bx0 + tw, W - d)) {
+        const int s = (row + R) * RW + lane;
+        PH[((d - 1) * TH + row) * RW + lane] = blur_pair(G[s], G[s + d], phi, pw, odd);
+      }
+    } else if (row < th && col_in) {
+      const float4 q = G[(row + R) * RW + lane];
+      S[row * RW + lane] = blur_pair(q, q, phi, pw, odd);
+    }
+  }
+  __syncthreads();
+
+  // vertical pass on the tile's rows, every loaded column; tap i reads
+  // shift2d(img, o, 0) = img[clamp(y - o)], o = i - R
+  for (int ty = warp; ty < th; ty += nw) {
+    if (!col_in) continue;
+    const int y = by0 + ty;
+    float sum_c = 0.0f, sum_w = 0.0f;
+#pragma unroll
+    for (int i = 0; i <= 2 * R; ++i) {
+      const int q = clampi(y - (i - R), H - 1);
+      const float2 wp = q == y ? S[ty * RW + lane]
+                        : q > y ? PV[((q - y - 1) * THr + (y - ry0)) * RW + lane]
+                                : PV[((y - q - 1) * THr + (q - ry0)) * RW + lane];
+      const float w = __fmul_rn(__fmul_rn(a.g.w[i], wp.x), wp.y);
+      sum_c = __fadd_rn(sum_c, __fmul_rn(I[(q - ry0) * RW + lane], w));
+      sum_w = __fadd_rn(sum_w, w);
+    }
+    V[ty * RW + lane] = sum_c / fmaxf(sum_w, 1e-8f);
+  }
+  __syncthreads();
+
+  // horizontal pass on the tile, then the mask's passthrough; lane = the
+  // output column
+  for (int ty = warp; ty < th; ty += nw) {
+    if (lane >= tw) continue;
+    const int xo = bx0 + lane, c = lane + R;  // c = xo - rx0
+    const int p = (by0 + ty) * W + xo;
+    float res = I[(ty + R) * RW + c];
+    if (a.mask[p]) {
+      float sum_c = 0.0f, sum_w = 0.0f;
+#pragma unroll
+      for (int i = 0; i <= 2 * R; ++i) {
+        const int q = clampi(xo - (i - R), W - 1);
+        const float2 wp = q == xo ? S[ty * RW + c]
+                          : q > xo ? PH[((q - xo - 1) * TH + ty) * RW + c]
+                                   : PH[((xo - q - 1) * TH + ty) * RW + (q - rx0)];
+        const float w = __fmul_rn(__fmul_rn(a.g.w[i], wp.x), wp.y);
+        sum_c = __fadd_rn(sum_c, __fmul_rn(V[ty * RW + (q - rx0)], w));
+        sum_w = __fadd_rn(sum_w, w);
+      }
+      res = sum_c / fmaxf(sum_w, 1e-8f);
+    }
+    a.out[p] = res;
+  }
+}
+
+template <int R, bool P32>
+int launch_blur(const BlurLaunch& a, cudaStream_t s) {
+  constexpr size_t smem = BlurSmem<R>::bytes;
+  static_assert(smem <= (size_t)SMEM_LIMIT, "K4's tile exceeds a block's shared memory");
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        blur_tile_kernel<R, P32>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((a.W + BlurTile<R>::TW - 1) / BlurTile<R>::TW,
+                  (a.H + BLUR_TILE_H - 1) / BLUR_TILE_H);
+  blur_tile_kernel<R, P32><<<grid, BLUR_THREADS, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int R>
+int launch_blur_p(const BlurLaunch& a, cudaStream_t s) {
+  return a.normal_power == 32.0f ? launch_blur<R, true>(a, s) : launch_blur<R, false>(a, s);
 }
 
 }  // namespace
@@ -423,21 +636,35 @@ extern "C" int hr_atrous_fused(int channels, const float* color, const float* va
   return (int)cudaErrorInvalidValue;
 }
 
+// K4: the separable bilateral blur in one launch of tiles (32 - 2 * radius)
+// x BLUR_TILE_H pixels, radius 1 to MAX_BLUR_RADIUS.
 extern "C" int hr_bilateral_blur(const float* img, const float* normal,
                                  const float* depth, const uint8_t* mask, int H,
                                  int W, int radius, GaussTaps g, float depth_phi,
-                                 float normal_power, float* tmp, float* out,
-                                 void* stream) {
-  if (radius < 0 || radius > MAX_BLUR_RADIUS) return (int)cudaErrorInvalidValue;
-  const dim3 block(BX, BY);
-  const dim3 grid((W + BX - 1) / BX, (H + BY - 1) / BY);
+                                 float normal_power, float* out, void* stream) {
+  if (radius < 1 || radius > MAX_BLUR_RADIUS) return (int)cudaErrorInvalidValue;
+  if (H < 1 || W < 1) return (int)cudaGetLastError();
+  BlurLaunch a;
+  a.img = img;
+  a.normal = normal;
+  a.depth = depth;
+  a.mask = mask;
+  a.out = out;
+  a.H = H;
+  a.W = W;
+  a.depth_phi = depth_phi;
+  a.normal_power = normal_power;
+  a.odd_power = floorf(normal_power) == normal_power && fmodf(normal_power, 2.0f) != 0.0f;
+  a.g = g;
   cudaStream_t s = (cudaStream_t)stream;
-  // vertical pass over every pixel into tmp, then horizontal + mask
-  blur_axis_kernel<true><<<grid, block, 0, s>>>(img, normal, depth, H, W, radius, g,
-                                                depth_phi, normal_power, nullptr,
-                                                nullptr, tmp);
-  blur_axis_kernel<false><<<grid, block, 0, s>>>(tmp, normal, depth, H, W, radius, g,
-                                                 depth_phi, normal_power, img, mask,
-                                                 out);
-  return (int)cudaGetLastError();
+  switch (radius) {
+    case 1: return launch_blur_p<1>(a, s);
+    case 2: return launch_blur_p<2>(a, s);
+    case 3: return launch_blur_p<3>(a, s);
+    case 4: return launch_blur_p<4>(a, s);
+    case 5: return launch_blur_p<5>(a, s);
+    case 6: return launch_blur_p<6>(a, s);
+    case 7: return launch_blur_p<7>(a, s);
+    default: return launch_blur_p<8>(a, s);
+  }
 }

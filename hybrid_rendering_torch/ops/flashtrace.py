@@ -16,7 +16,8 @@ n = e1 x e2, are affine in the ray's feature vector f = [o, d, o x d, 1]:
 
 so ``make_flash_scene`` stores, per triangle, the coefficient of each
 feature in each scalar; only 19 of the 40 are non-zero (``NONZERO``), and
-``coef`` (T, 20) holds those, scalar by scalar. A pair is accepted where
+``coef`` holds those, scalar by scalar, 20 floats a triangle, with zero
+rows after the last triangle up to a whole tile of K6's scan. A pair is accepted where
 |det| > 1e-9 and, with inv_det = 1/det and t, u, v = num * inv_det,
 u >= 0, v >= 0, u + v <= 1, t_min < t < t_max.
 
@@ -29,7 +30,10 @@ Two versions of each trace live here:
     to;
   - the CUDA kernels in csrc/flashtrace.cu, used for every CUDA tensor,
     which follow the plain version's operation order and so match it bit
-    for bit.
+    for bit. K6 first rejects most pairs by tests without the reciprocal
+    that provably never reject a pair the exact test accepts (the source
+    derives their slack; tests/test_torch_k6_design.py models them), then
+    runs the exact test on the rest.
 
 Closest hit keeps the lowest triangle index among equal minima and a
 miss keeps t = t_max, u = v = 0, tri_id -1 and an all-zero attribute row.
@@ -39,8 +43,10 @@ K2's bvh rule says visible; callers gate such rays out.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from hybrid_rendering_torch.ops import kernels
@@ -52,16 +58,34 @@ ATTR = 24  # attribute row width (ops/bvh.py attr_table)
 NONZERO = ((3, 4, 5), (0, 1, 2, 9), (3, 4, 5, 6, 7, 8), (3, 4, 5, 6, 7, 8))
 COEF = 20  # the 19 non-zero coefficients of a triangle, padded to 20
 CHUNK_PAIRS = 1 << 28  # (ray, triangle) pairs per plain-version chunk
+TILE = 128  # triangles a tile of K6's scan (csrc/flashtrace.cu)
+# K6's pre-tests: relative slack, and the t_min range their proof covers
+SLACK_LO = float(np.float32(1.0 - 2.0 ** -20))
+PRE_T_MIN = (2.0 ** -90, 2.0 ** 20)
+# K6's launch, chosen by timings on an H100 (PERF.md): two rays a thread
+# from WIDE_BATCH rays up, else one; the most parts the triangles split
+# into (only where the rays' blocks fill less than the card)
+WIDE_BATCH = 1 << 20
+MAX_PARTS = 8
+
+
+def rays_per_thread(num_rays):
+    """K6's rays a thread for a launch of `num_rays` rays."""
+    return 2 if num_rays >= WIDE_BATCH else 1
 
 
 @dataclasses.dataclass
 class FlashScene:
     """What K6/K6′ and their plain versions read."""
 
-    coef: torch.Tensor  # (T, 20) f32 the non-zero coefficients of det/t/u/v, padded
+    # (T', 20) f32: each triangle's non-zero coefficients of det/t/u/v and
+    # a zero pad; then zero rows up to whole K6 tiles (pad_tiles), which
+    # K6′ and the plain versions do not read
+    coef: torch.Tensor
     center: torch.Tensor  # (3,) recentring offset
     attrs: Optional[torch.Tensor]  # (T, 24) f32 attribute rows, or None
     num_tris: int
+    det_bound: float  # the largest |det| coefficients' sum, rounded up (det_bound)
 
 
 def _cross(a, b):
@@ -98,7 +122,28 @@ def make_flash_scene(tri_pos: torch.Tensor, attrs: Optional[torch.Tensor] = None
         attrs = attrs.to(torch.float32).contiguous()
         if tuple(attrs.shape) != (T, ATTR):
             raise ValueError(f"attrs: expected shape {(T, ATTR)}, got {tuple(attrs.shape)}")
-    return FlashScene(coef=coef, center=center, attrs=attrs, num_tris=T)
+    return FlashScene(coef=pad_tiles(coef), center=center, attrs=attrs, num_tris=T,
+                      det_bound=det_bound(coef))
+
+
+def det_bound(coef) -> float:
+    """The largest |c_0| + |c_1| + |c_2| of det's coefficients over the
+    triangles, as a float32 no smaller than the exact sum: K6 bounds a
+    ray's |det| by it (|d_x| + |d_y| + |d_z| times it) and takes its
+    pre-tests only below 2^100. One host read, when the scene is built."""
+    if coef.shape[0] == 0:
+        return 0.0
+    exact = float(coef[:, :3].double().abs().sum(dim=1).max())
+    bound = np.float32(exact)
+    return float(bound if bound >= exact else np.nextafter(bound, np.float32(np.inf)))
+
+
+def pad_tiles(coef):
+    """(T, 20) coefficients padded with all-zero rows to a whole number of
+    K6 tiles (at least one): a zero row's det is 0, which fails
+    |det| > 1e-9 for every ray, so the padding never changes a result."""
+    pad = -coef.shape[0] % TILE if coef.shape[0] else TILE
+    return torch.cat([coef, coef.new_zeros((pad, coef.shape[1]))]).contiguous()
 
 
 def features(origin, direction, center):
@@ -129,7 +174,7 @@ def pair_tests(fs: FlashScene, feats, t_max, t_min=1e-3):
     """Yields, for each chunk of rays, (slice, det_ok, t, u, v, ok): every
     pair's |det| > 1e-9 test, t, u, v and acceptance, each (Rc, T)."""
     R = feats.shape[0]
-    coef_t = fs.coef.T.contiguous()
+    coef_t = fs.coef[:fs.num_tris].T.contiguous()
     step = max(1, CHUNK_PAIRS // max(fs.num_tris, 1))
     for s in range(0, R, step):
         sl = slice(s, min(s + step, R))
@@ -202,17 +247,57 @@ def _check(fs: FlashScene, origin, direction, t_max):
     kernels.require(origin, "origin", torch.float32, (R, 3))
     kernels.require(direction, "direction", torch.float32, (R, 3))
     kernels.require(t_max, "t_max", torch.float32, (R,))
-    kernels.require(fs.coef, "coef", torch.float32, (fs.num_tris, COEF))
+    rows = fs.coef.shape[0]
+    kernels.require(fs.coef, "coef", torch.float32, (rows, COEF))
+    if rows % TILE or rows < max(fs.num_tris, 1):
+        raise ValueError(f"coef: {rows} rows do not pad {fs.num_tris} triangles to whole "
+                         f"tiles of {TILE}")
     return R, features(origin, direction, fs.center)
 
 
-def _launch_closest(fs: FlashScene, origin, direction, t_max, t_min, with_attrs):
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device_index, rays_per_thread):
+    """K6's scan blocks the card holds at once."""
+    per_sm = kernels.lib().hr_flash_closest_blocks_per_sm(rays_per_thread)
+    if per_sm < 1:
+        raise RuntimeError(f"hr_flash_closest_blocks_per_sm({rays_per_thread}): {per_sm}")
+    return per_sm * torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def split_parts(num_rays, rays_per_thread, num_tiles, resident):
+    """Parts K6 splits the triangles into: 1 where the rays' blocks fill the
+    card, else as many as bring the blocks up to `resident` (at most
+    MAX_PARTS and the tiles)."""
+    groups = -(-num_rays // (128 * rays_per_thread))
+    if groups >= resident:
+        return 1
+    return max(1, min(MAX_PARTS, -(-resident // max(groups, 1)), num_tiles))
+
+
+def _launch_closest(fs: FlashScene, origin, direction, t_max, t_min, with_attrs, plan=None):
+    """K6's launch. `plan` = (rays a thread, parts of the split) overrides
+    the wrapper's choice (``rays_per_thread``, ``split_parts``) only to
+    hold every launch path to the plain version on small batches.
+    t_min must be >= 0: the merge key orders t > 0 only, and the
+    pre-tests' bounds scale the running best."""
+    if not t_min >= 0:
+        raise ValueError(f"flash_closest_hit on the GPU: t_min must be >= 0, got {t_min}")
     R, feats = _check(fs, origin, direction, t_max)
     dev = origin.device
+    num_tiles = fs.coef.shape[0] // TILE
+    if plan is None:
+        rpt = rays_per_thread(R)
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        parts = split_parts(R, rpt, num_tiles, _resident_blocks(index, rpt))
+    else:
+        rpt, parts = plan[0], min(plan[1], num_tiles)
     t = torch.empty(R, dtype=torch.float32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     tri_id = torch.empty(R, dtype=torch.int32, device=dev)
+    ray_list = torch.empty(R, dtype=torch.int32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    keys = torch.empty(R, dtype=torch.int64, device=dev)
     attrs = attr_ptr = out_ptr = None
     if with_attrs:
         if fs.attrs is None:
@@ -220,10 +305,14 @@ def _launch_closest(fs: FlashScene, origin, direction, t_max, t_min, with_attrs)
         kernels.require(fs.attrs, "attrs", torch.float32, (fs.num_tris, ATTR))
         attrs = torch.empty((R, ATTR), dtype=torch.float32, device=dev)
         attr_ptr, out_ptr = fs.attrs.data_ptr(), attrs.data_ptr()
+    t_min32 = np.float32(t_min)
+    klo = float(t_min32 * np.float32(SLACK_LO))
+    pre = int(PRE_T_MIN[0] <= t_min32 <= PRE_T_MIN[1])
     err = kernels.lib().hr_flash_closest(
-        fs.coef.data_ptr(), attr_ptr, fs.num_tris, feats.data_ptr(), t_max.data_ptr(), R,
-        t_min, t.data_ptr(), u.data_ptr(), v.data_ptr(), tri_id.data_ptr(), out_ptr,
-        kernels.stream_ptr())
+        fs.coef.data_ptr(), num_tiles, attr_ptr, feats.data_ptr(), t_max.data_ptr(), R, t_min,
+        klo, pre, fs.det_bound, rpt, parts, ray_list.data_ptr(), count.data_ptr(),
+        keys.data_ptr(), t.data_ptr(), u.data_ptr(),
+        v.data_ptr(), tri_id.data_ptr(), out_ptr, kernels.stream_ptr())
     kernels.check(err, "hr_flash_closest")
     return Hit(t=t, tri_id=tri_id, u=u, v=v), attrs
 
@@ -231,7 +320,7 @@ def _launch_closest(fs: FlashScene, origin, direction, t_max, t_min, with_attrs)
 def flash_closest_hit(fs: FlashScene, origin, direction, t_max, t_min=1e-3) -> Hit:
     """K6: closest hit with t in (t_min, t_max), every ray against every
     triangle. origin/direction (R,3), t_max (R,). CPU tensors take the
-    plain version; CUDA tensors launch csrc/flashtrace.cu."""
+    plain version; CUDA tensors launch csrc/flashtrace.cu (t_min >= 0)."""
     if kernels.on_cpu(origin):
         return flash_closest_hit_plain(fs, origin, direction, t_max, t_min)
     hit, _ = _launch_closest(fs, origin, direction, t_max, t_min, with_attrs=False)

@@ -60,10 +60,12 @@ _SIGNATURES = {
     "hr_atrous_fused": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _F,
                         _I, _I, _I, _I, _P, _P, _P, _P],
     "hr_bilateral_blur": [_P, _P, _P, _P, _I, _I, _I, GaussTaps, _F, _F,
-                          _P, _P, _P],
+                          _P, _P],
     "hr_ddgi_sample": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                        _F, _F, _I, _P, _P, _P, _I, _P, _P],
-    "hr_flash_closest": [_P, _P, _I, _P, _P, _I, _F, _P, _P, _P, _P, _P, _P],
+    "hr_flash_closest": [_P, _I, _P, _P, _P, _I, _F, _F, _I, _F, _I, _I, _P, _P, _P,
+                         _P, _P, _P, _P, _P, _P],
+    "hr_flash_closest_blocks_per_sm": [_I],
     "hr_flash_visibility": [_P, _I, _P, _P, _I, _F, _P, _P],
     "hr_noop": [_P],
 }

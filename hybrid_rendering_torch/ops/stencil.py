@@ -7,7 +7,8 @@ versions (``atrous_chain_plain`` / ``bilateral_blur_plain``, built on
 ops/filters.py); CUDA tensors launch the kernels. K3 runs a chain as a few
 launches of one tiled kernel, each fusing consecutive iterations
 (``_plan``); it agrees with the plain version to a tolerance (folded
-weights, approximate exp2), K4 rounds like its plain version.
+weights, approximate exp2). K4 is one launch of shared-memory tiles that
+evaluates each pair's weights once, and rounds like its plain version.
 """
 from __future__ import annotations
 
@@ -177,14 +178,16 @@ def bilateral_blur(img, normal, depth, mask, *, radius=4, depth_phi=1.0,
                    normal_power=32.0):
     """K4: vertical then horizontal bilateral Gaussian (sigma = radius/1.5)
     with normal/depth edge stops; pixels outside `mask` keep their input.
-    img/depth (H,W) float32, normal (H,W,3), mask (H,W) bool."""
+    img/depth (H,W) float32, normal (H,W,3), mask (H,W) bool. One launch."""
     if kernels.on_cpu(img):
         return bilateral_blur_plain(img, normal, depth, mask, radius=radius,
                                     depth_phi=depth_phi, normal_power=normal_power)
     H, W = img.shape
-    if not 0 <= radius <= kernels.MAX_BLUR_RADIUS:
+    if not 1 <= radius <= kernels.MAX_BLUR_RADIUS:
+        # r = 0 has no Gaussian (sigma = r / 1.5): the plain version and the
+        # JAX package's raise on it too
         raise ValueError(f"bilateral_blur: radius must be in "
-                         f"[0, {kernels.MAX_BLUR_RADIUS}], got {radius}")
+                         f"[1, {kernels.MAX_BLUR_RADIUS}], got {radius}")
     kernels.require(img, "img", torch.float32, (H, W))
     kernels.require(normal, "normal", torch.float32, (H, W, 3))
     kernels.require(depth, "depth", torch.float32, (H, W))
@@ -192,12 +195,11 @@ def bilateral_blur(img, normal, depth, mask, *, radius=4, depth_phi=1.0,
     taps = kernels.GaussTaps()
     for i, g in enumerate(filters.gauss_taps(radius)):
         taps.w[i] = g
-    tmp = torch.empty_like(img)  # vertical-pass result
     out = torch.empty_like(img)
     err = kernels.lib().hr_bilateral_blur(
         img.data_ptr(), normal.data_ptr(), depth.data_ptr(), mask.data_ptr(),
-        H, W, int(radius), taps, max(float(depth_phi), 1e-6),
-        float(normal_power), tmp.data_ptr(), out.data_ptr(), kernels.stream_ptr())
+        H, W, int(radius), taps, max(float(depth_phi), 1e-6), float(normal_power),
+        out.data_ptr(), kernels.stream_ptr())
     kernels.check(err, "hr_bilateral_blur")
     bilateral_blur.launches += 1
     return out
