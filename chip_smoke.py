@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   (K1-K6′ checks, edge cases and
                                             times; no result line)
+    python3 chip_smoke.py --dense-only     (the same for K6/K6′ alone)
 
 Builds the port's CUDA kernels (K1 closest hit + attributes, K2 any-hit,
 K3 à-trous chain, K4 bilateral blur, K5 DDGI irradiance sampler, K6 dense
@@ -26,7 +27,10 @@ pixel wide, radii 1 and 8; points outside the probe grid on every side, on
 a cage face, with zero normals, without the visibility test, in a 2 x 2 x 2
 grid, at NaN and inf positions; K6 in each launch plan on batches of
 1 to 129 rays, all missing, masked, behind the scene, with 300 and 1
-triangles, and its refusal of a negative t_min), and the blue-noise
+triangles, and its refusal of a negative t_min; K6′ in each launch plan on
+batches of 1 to 129 rays, all unoccluded, all blocked, masked, with t_max
+= inf, t_min = 0 and negative t_min, with 300 and 1 triangles, and with
+the only blocker in the last tile), and the blue-noise
 sampler's grid (both modes) on the card against the CPU. Then it renders
 the bench
 frame through ``HybridRenderer`` with every kernel counting its launches,
@@ -98,17 +102,18 @@ LDR_MEAN = 1e-3
 # decides every pair): every tri_id equal, and t, u, v and the attribute
 # row equal bit for bit
 K6_MIN_AGREE = 1.0
-# K6′ against its plain version (bit for bit by design, -fmad=false)
-K6P_MIN_AGREE = 0.9999
+# K6′ against its plain version: bit for bit (-fmad=false, the exact test
+# decides every pair): every live ray equal, every masked ray blocked
+K6P_MIN_AGREE = 1.0
 # K6 against K1 on the primary rays: the affine product loses precision
 # for rays that graze or start near large walls, so a few hits flip
 K6_K1_MIN_AGREE = 0.999
 T_MIN = 1e-3  # the tracers' t_min
 # kernels whose registers, spills and shared memory are printed from nvcc's log
 PTXAS_KERNELS = ("closest_kernel", "anyhit", "atrous_tile", "blur_tile", "ddgi_sample_kernel",
-                 "flash_kernel", "k6_")
-# K6's launch plans held to the plain version on its edge cases beside
-# the wrapper's own choice: (rays a thread, parts of the split)
+                 "k6_", "k6p_")
+# the launch plans of K6 and K6′ held to the plain version on their edge
+# cases beside the wrapper's own choice: (rays a thread, parts of the split)
 K6_EDGE_PLANS = ((1, 1), (2, 1), (1, 8), (2, 8))
 
 # bounds: published H100 SXM peaks (NVIDIA's data sheet; dense fp32
@@ -1028,10 +1033,41 @@ def k6_edge_cases(fs, scene, primary, dev):
         check(False, "K6 took a negative t_min")
 
 
-def check_k6p(fs, rays, label, name, timing):
-    """K6′ against its plain version on live rays; masked rays are
-    blocked. Returns (max |d|, plain_ms, (ms, bound_ms, bound_by) when
-    timing)."""
+def tile_boxes(tri_pos, fs):
+    """(tiles, 2, 3): the lower and upper corner of each 128-triangle tile's
+    box, in the coefficient table's order (the scene's)."""
+    from hybrid_rendering_torch.ops import flashtrace
+
+    tiles = fs.coef.shape[0] // flashtrace.TILE
+    v = tri_pos.reshape(-1, 9)
+    v = torch.cat([v, v[-1:].expand(tiles * flashtrace.TILE - v.shape[0], 9)])
+    v = v.reshape(tiles, -1, 3)
+    return torch.stack([v.amin(dim=1), v.amax(dim=1)], dim=1)
+
+
+def box_skip_share(boxes, o, d, tm):
+    """Share of (live ray, tile) pairs whose segment (t_min, t_max) misses
+    the tile's box by an unpadded slab test: what a per-tile cull as the
+    TPU kernel's (_ray_box_any) would skip. Information only; K6′ culls
+    nothing."""
+    live = tm > T_MIN
+    o, d, tm = o[live], d[live], tm[live]
+    skip = 0
+    for s in range(0, o.shape[0], 1 << 19):
+        oc, dc, tc = o[s:s + (1 << 19), None, :], d[s:s + (1 << 19), None, :], tm[s:s + (1 << 19)]
+        inv = 1.0 / torch.where(dc.abs() < 1e-12, torch.full_like(dc, 1e-12), dc)
+        lo, hi = (boxes[None, :, 0] - oc) * inv, (boxes[None, :, 1] - oc) * inv
+        near = torch.minimum(lo, hi).amax(dim=2)
+        far = torch.maximum(lo, hi).amin(dim=2)
+        enters = (near <= far) & (far > T_MIN) & (near < tc[:, None])
+        skip += int((~enters).sum())
+    return skip / max(o.shape[0] * boxes.shape[0], 1)
+
+
+def check_k6p(fs, rays, label, name, timing, boxes=None):
+    """K6′ against its plain version: bit for bit on every ray (live rays
+    equal, masked rays blocked). Returns (max |d|, plain_ms, (ms, bound_ms,
+    bound_by) when timing)."""
     from hybrid_rendering_torch.ops import flashtrace
 
     o, d, tm = rays
@@ -1045,20 +1081,97 @@ def check_k6p(fs, rays, label, name, timing):
           f"agree {share:.6f}, unoccluded {vis[live].mean().item():.4f}")
     check(share >= K6P_MIN_AGREE, f"K6′ {name}: agrees on {share} of live rays")
     check(bool((vis[~live] == 0).all()), f"K6′ {name}: a masked ray is not blocked")
+    check(bits_equal(vis, ref), f"K6′ {name}: differs from the plain version bit for bit")
     timed = None
     if timing:
-        ms = cuda_ms(lambda: flashtrace.flash_visibility(fs, o, d, tm), 10)
-        queued = cuda_ms(lambda: flashtrace.flash_visibility(fs, o, d, tm), 10, queued=True)
+        def run():
+            return flashtrace.flash_visibility(fs, o, d, tm)
+
+        ms, queued = cuda_ms(run, 10), cuda_ms(run, 10, queued=True)
         bnd = bound(R * (28 + 4) + fs.num_tris * 4 * 20, dense_ops(fs, o, d, tm, any_hit=True))
+        rpt = flashtrace.rays_per_thread(R)
+        parts = flashtrace.split_parts(int(live.sum()), rpt, fs.coef.shape[0] // flashtrace.TILE,
+                                       flashtrace._resident_blocks(torch.cuda.current_device(),
+                                                                   rpt, any_hit=True))
         print(f"K6′ {name}: kernel {ms:.3f} ms ({queued:.3f} ms queued), plain {plain_ms:.3f} ms, "
-              f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}), {device_launches(run)} CUDA launches a call; "
+              f"{rpt} ray(s) a thread, the triangles in {parts} part(s) for the live rays")
+        if boxes is not None:
+            print(f"K6′ {name}: an unpadded segment-box test would skip "
+                  f"{box_skip_share(boxes, o, d, tm):.4f} of (live ray, 128-triangle tile) pairs "
+                  f"(information only: no cull is applied)")
         timed = (ms,) + bnd
     return err, plain_ms, timed
 
 
-def check_dense(fs, ts, wf, label, timing):
+def k6p_edge_cases(fs, scene, vis_rays, dev):
+    """K6′ against its plain version, bit for bit, in every launch plan:
+    batches of 1, 31, 33 and 129 rays, all rays unoccluded, all blocked,
+    t_max <= t_min, t_max = inf, t_min = 0, a negative t_min (with t_max
+    in (t_min, 0] too), 300 triangles and 1, and rays whose only blocker
+    lies in the last tile."""
+    from hybrid_rendering_torch.ops import flashtrace
+
+    o, d, tm = (x[::10].contiguous() for x in vis_rays)  # every 10th live shadow / AO ray
+    live = tm > T_MIN
+    o, d, tm = o[live], d[live], tm[live]
+    ref = flashtrace.flash_visibility_plain(fs, o, d, tm)
+    free, blocked = ref == 1.0, ref == 0.0
+    check(bool(free.any()) and bool(blocked.any()), "K6′ edge cases: no mix of visible and blocked")
+    mixed = torch.nonzero(blocked)[0, 0].item()
+    # the triangle that blocks the most rays
+    hits = sum(ok.sum(dim=0) for *_, ok in flashtrace.pair_tests(
+        fs, flashtrace.features(o, d, fs.center), tm))
+    top = int(hits.argmax())
+    small = {300: flashtrace.make_flash_scene(scene.tri_pos[:300].contiguous()),
+             1: flashtrace.make_flash_scene(scene.tri_pos[top:top + 1].contiguous())}
+    # rays that start a little off each triangle of the last tile and end
+    # a little past it, kept where the plain version's only blockers lie
+    # in that tile
+    T, last = fs.num_tris, (fs.num_tris - 1) // flashtrace.TILE * flashtrace.TILE
+    tri = scene.tri_pos[last:T]
+    n = torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    n = n / torch.linalg.norm(n, dim=1, keepdim=True)
+    lo_ = tri.mean(dim=1) + 0.01 * n
+    ld_ = -n.contiguous()
+    ltm = torch.full((tri.shape[0],), 0.02, device=dev)
+    feats = flashtrace.features(lo_, ld_, fs.center)
+    ok = next(flashtrace.pair_tests(fs, feats, ltm))[-1]
+    only_last = ok[:, last:].any(dim=1) & ~ok[:, :last].any(dim=1)
+    check(int(only_last.sum()) > 0, "K6′ edge cases: no ray blocked in the last tile alone")
+    cases = {"all unoccluded": (fs, o[free], d[free], tm[free], T_MIN),
+             "all blocked": (fs, o[blocked], d[blocked], tm[blocked], T_MIN),
+             "t_max <= t_min": (fs, o, d, torch.where(free, T_MIN, 0.0).to(tm.dtype), T_MIN),
+             "t_max = inf": (fs, o, d, torch.full_like(tm, float("inf")), T_MIN),
+             "t_min = 0": (fs, o, d, tm, 0.0),
+             "t_min = -1": (fs, o, d, tm, -1.0),
+             "t_min = -1, t_max in (-1, 0]": (fs, o, d, torch.linspace(0.0, -0.999, tm.shape[0],
+                                                                        device=dev), -1.0),
+             "300 triangles": (small[300], o, d, tm, T_MIN),
+             "1 triangle": (small[1], o, d, tm, T_MIN),
+             "blocked in the last tile alone": (fs, lo_[only_last], ld_[only_last],
+                                                ltm[only_last], T_MIN)}
+    for k in (1, 31, 33, 129):
+        sl = slice(max(mixed - k // 2, 0), max(mixed - k // 2, 0) + k)
+        cases[f"{k} rays"] = (fs, o[sl], d[sl], tm[sl], T_MIN)
+    for name, (fs_, o_, d_, tm_, t_min) in cases.items():
+        o_, d_, tm_ = (x.contiguous() for x in (o_, d_, tm_))
+        want = flashtrace.flash_visibility_plain(fs_, o_, d_, tm_, t_min)
+        for plan in (None,) + K6_EDGE_PLANS:
+            got = flashtrace._launch_visibility(fs_, o_, d_, tm_, t_min, plan)
+            check(bits_equal(got, want), f"K6′ edge case {name}, plan {plan or 'of the wrapper'} "
+                                         f"differs")
+        check(bits_equal(flashtrace.flash_visibility(fs_, o_, d_, tm_, t_min), want),
+              f"K6′ edge case {name}: the wrapper differs")
+        print(f"[edge] K6′ {name}: {o_.shape[0]} rays, {fs_.num_tris} triangles, t_min {t_min}, "
+              f"{int((want == 0).sum())} blocked, every plan equal to the plain version bit for "
+              f"bit")
+
+
+def check_dense(fs, ts, wf, label, timing, boxes=None):
     """K6/K6′ at every ray site of the dense frame, and K6 against K1 (on
-    the BVH `ts`) on its primary rays. Returns ({"K6", "K6′": max abs err}, {kernel: (ms,
+    the BVH `ts`) on its primary rays; `boxes`: the tile boxes, for K6′'s
+    box-cull share. Returns ({"K6", "K6′": max abs err}, {kernel: (ms,
     plain_ms, bound_ms, bound_by)} at the largest site when timing)."""
     from hybrid_rendering_torch.ops import bvh
 
@@ -1080,7 +1193,7 @@ def check_dense(fs, ts, wf, label, timing):
                   f"K6 vs K1: hit/miss {hit_miss}, tri_id {ids}")
     sites = {"shadow + AO": wf["vis_rays"], **wf["k2_more"]}
     for name, rays in sites.items():
-        err, plain_ms, timed = check_k6p(fs, rays, label, name, timing)
+        err, plain_ms, timed = check_k6p(fs, rays, label, name, timing, boxes)
         errs["K6′"] = max(errs.get("K6′", 0.0), err)
         if timing and name == "shadow + AO":
             out["K6′"] = (timed[0], plain_ms) + timed[1:]
@@ -1098,8 +1211,10 @@ def dense_phase(dev):
     state = r.create_state()
     cam0 = r.make_camera(camkw["eye"], camkw["target"], 0)
     wf = wavefronts(r, state, cam0, light)
-    errs0, times = check_dense(fs, ts, wf, "dense frame 0", timing=True)
+    errs0, times = check_dense(fs, ts, wf, "dense frame 0", timing=True,
+                               boxes=tile_boxes(r.scene.tri_pos, fs))
     k6_edge_cases(fs, r.scene, wf["primary"], dev)
+    k6p_edge_cases(fs, r.scene, wf["vis_rays"], dev)
     del wf
     _, state = r.render_frame(state, cam0, light)
     eye1 = tuple(np.asarray(camkw["eye"]) + [EYE_STEP, 0.0, 0.0])
@@ -1351,6 +1466,10 @@ def profile_phase(dev, frames=5):
     for e in sorted(kernels_, key=lambda e: -e.self_device_time_total)[:4]:
         print(f"  {e.self_device_time_total / 1e3 / frames:8.3f} ms/frame  "
               f"{e.count // frames:5d}x  {e.key[:90]}")
+    # K6′'s kernels: its scan and its compaction
+    k6p = [e for e in kernels_ if "k6p_" in e.key or "K6PArgs" in e.key]
+    print(f"  K6′ on the dense frame: {sum(e.self_device_time_total for e in k6p) / 1e3 / frames:.3f} "
+          f"ms/frame of device time in {sum(e.count for e in k6p) // frames} launches")
 
 
 def main() -> int:
@@ -1388,6 +1507,11 @@ def main() -> int:
             keep -= 1
             print("    " + line.strip())
 
+    if "--dense-only" in sys.argv[1:]:
+        # the K6/K6′ checks, edge cases and times alone: a short call for
+        # work on the dense kernels; prints no result line
+        dense_phase(dev)
+        return 0
     timed = kernel_phase(dev)
     timed.update(dense_phase(dev))
     if "--kernels-only" in sys.argv[1:]:

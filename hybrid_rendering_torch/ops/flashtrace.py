@@ -17,9 +17,9 @@ n = e1 x e2, are affine in the ray's feature vector f = [o, d, o x d, 1]:
 so ``make_flash_scene`` stores, per triangle, the coefficient of each
 feature in each scalar; only 19 of the 40 are non-zero (``NONZERO``), and
 ``coef`` holds those, scalar by scalar, 20 floats a triangle, with zero
-rows after the last triangle up to a whole tile of K6's scan. A pair is accepted where
-|det| > 1e-9 and, with inv_det = 1/det and t, u, v = num * inv_det,
-u >= 0, v >= 0, u + v <= 1, t_min < t < t_max.
+rows after the last triangle up to a whole tile of the kernels' scans. A
+pair is accepted where |det| > 1e-9 and, with inv_det = 1/det and t, u,
+v = num * inv_det, u >= 0, v >= 0, u + v <= 1, t_min < t < t_max.
 
 Two versions of each trace live here:
   - the plain PyTorch version, which sums each scalar's feature terms left
@@ -30,10 +30,11 @@ Two versions of each trace live here:
     to;
   - the CUDA kernels in csrc/flashtrace.cu, used for every CUDA tensor,
     which follow the plain version's operation order and so match it bit
-    for bit. K6 first rejects most pairs by tests without the reciprocal
+    for bit. Both first reject most pairs by tests without the reciprocal
     that provably never reject a pair the exact test accepts (the source
-    derives their slack; tests/test_torch_k6_design.py models them), then
-    runs the exact test on the rest.
+    derives their slack; tests/test_torch_k6_design.py and
+    tests/test_torch_k6p_design.py model them), then run the exact test on
+    the rest.
 
 Closest hit keeps the lowest triangle index among equal minima and a
 miss keeps t = t_max, u = v = 0, tri_id -1 and an all-zero attribute row.
@@ -58,19 +59,20 @@ ATTR = 24  # attribute row width (ops/bvh.py attr_table)
 NONZERO = ((3, 4, 5), (0, 1, 2, 9), (3, 4, 5, 6, 7, 8), (3, 4, 5, 6, 7, 8))
 COEF = 20  # the 19 non-zero coefficients of a triangle, padded to 20
 CHUNK_PAIRS = 1 << 28  # (ray, triangle) pairs per plain-version chunk
-TILE = 128  # triangles a tile of K6's scan (csrc/flashtrace.cu)
-# K6's pre-tests: relative slack, and the t_min range their proof covers
+TILE = 128  # triangles a tile of K6's and K6′'s scans (csrc/flashtrace.cu)
+# the pre-tests of K6 and K6′: relative slack, and the t_min range their
+# proof covers
 SLACK_LO = float(np.float32(1.0 - 2.0 ** -20))
 PRE_T_MIN = (2.0 ** -90, 2.0 ** 20)
-# K6's launch, chosen by timings on an H100 (PERF.md): two rays a thread
-# from WIDE_BATCH rays up, else one; the most parts the triangles split
-# into (only where the rays' blocks fill less than the card)
+# the launch of K6 and K6′, chosen by timings on an H100 (PERF.md): two
+# rays a thread from WIDE_BATCH rays up, else one; the most parts the
+# triangles split into (only where the rays' blocks fill less than the card)
 WIDE_BATCH = 1 << 20
 MAX_PARTS = 8
 
 
 def rays_per_thread(num_rays):
-    """K6's rays a thread for a launch of `num_rays` rays."""
+    """K6's and K6′'s rays a thread for a launch of `num_rays` rays."""
     return 2 if num_rays >= WIDE_BATCH else 1
 
 
@@ -79,8 +81,8 @@ class FlashScene:
     """What K6/K6′ and their plain versions read."""
 
     # (T', 20) f32: each triangle's non-zero coefficients of det/t/u/v and
-    # a zero pad; then zero rows up to whole K6 tiles (pad_tiles), which
-    # K6′ and the plain versions do not read
+    # a zero pad; then zero rows up to whole tiles (pad_tiles), which the
+    # plain versions do not read
     coef: torch.Tensor
     center: torch.Tensor  # (3,) recentring offset
     attrs: Optional[torch.Tensor]  # (T, 24) f32 attribute rows, or None
@@ -140,7 +142,7 @@ def det_bound(coef) -> float:
 
 def pad_tiles(coef):
     """(T, 20) coefficients padded with all-zero rows to a whole number of
-    K6 tiles (at least one): a zero row's det is 0, which fails
+    kernel tiles (at least one): a zero row's det is 0, which fails
     |det| > 1e-9 for every ray, so the padding never changes a result."""
     pad = -coef.shape[0] % TILE if coef.shape[0] else TILE
     return torch.cat([coef, coef.new_zeros((pad, coef.shape[1]))]).contiguous()
@@ -252,26 +254,35 @@ def _check(fs: FlashScene, origin, direction, t_max):
     if rows % TILE or rows < max(fs.num_tris, 1):
         raise ValueError(f"coef: {rows} rows do not pad {fs.num_tris} triangles to whole "
                          f"tiles of {TILE}")
-    return R, features(origin, direction, fs.center)
+    return R
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(device_index, rays_per_thread):
-    """K6's scan blocks the card holds at once."""
-    per_sm = kernels.lib().hr_flash_closest_blocks_per_sm(rays_per_thread)
+def _resident_blocks(device_index, rays_per_thread, any_hit=False):
+    """K6's (or, with `any_hit`, K6′'s) scan blocks the card holds at once."""
+    name = "hr_flash_visibility_blocks_per_sm" if any_hit else "hr_flash_closest_blocks_per_sm"
+    per_sm = getattr(kernels.lib(), name)(rays_per_thread)
     if per_sm < 1:
-        raise RuntimeError(f"hr_flash_closest_blocks_per_sm({rays_per_thread}): {per_sm}")
+        raise RuntimeError(f"{name}({rays_per_thread}): {per_sm}")
     return per_sm * torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def split_parts(num_rays, rays_per_thread, num_tiles, resident):
+def split_parts(num_rays, rays_per_thread, num_tiles, resident, max_parts=MAX_PARTS):
     """Parts K6 splits the triangles into: 1 where the rays' blocks fill the
     card, else as many as bring the blocks up to `resident` (at most
-    MAX_PARTS and the tiles)."""
+    `max_parts` and the tiles). K6′ applies the same rule on the card to
+    its live rays (csrc/flashtrace.cu k6p_parts)."""
     groups = -(-num_rays // (128 * rays_per_thread))
     if groups >= resident:
         return 1
-    return max(1, min(MAX_PARTS, -(-resident // max(groups, 1)), num_tiles))
+    return max(1, min(max_parts, -(-resident // max(groups, 1)), num_tiles))
+
+
+def _pre_bounds(t_min):
+    """(klo, pre) of the kernels' pre-tests for `t_min`: klo = RN(t_min (1 -
+    2^-20)), and pre = 1 where their proof holds (PRE_T_MIN)."""
+    t_min32 = np.float32(t_min)
+    return float(t_min32 * np.float32(SLACK_LO)), int(PRE_T_MIN[0] <= t_min32 <= PRE_T_MIN[1])
 
 
 def _launch_closest(fs: FlashScene, origin, direction, t_max, t_min, with_attrs, plan=None):
@@ -282,7 +293,8 @@ def _launch_closest(fs: FlashScene, origin, direction, t_max, t_min, with_attrs,
     pre-tests' bounds scale the running best."""
     if not t_min >= 0:
         raise ValueError(f"flash_closest_hit on the GPU: t_min must be >= 0, got {t_min}")
-    R, feats = _check(fs, origin, direction, t_max)
+    R = _check(fs, origin, direction, t_max)
+    feats = features(origin, direction, fs.center)
     dev = origin.device
     num_tiles = fs.coef.shape[0] // TILE
     if plan is None:
@@ -305,9 +317,7 @@ def _launch_closest(fs: FlashScene, origin, direction, t_max, t_min, with_attrs,
         kernels.require(fs.attrs, "attrs", torch.float32, (fs.num_tris, ATTR))
         attrs = torch.empty((R, ATTR), dtype=torch.float32, device=dev)
         attr_ptr, out_ptr = fs.attrs.data_ptr(), attrs.data_ptr()
-    t_min32 = np.float32(t_min)
-    klo = float(t_min32 * np.float32(SLACK_LO))
-    pre = int(PRE_T_MIN[0] <= t_min32 <= PRE_T_MIN[1])
+    klo, pre = _pre_bounds(t_min)
     err = kernels.lib().hr_flash_closest(
         fs.coef.data_ptr(), num_tiles, attr_ptr, feats.data_ptr(), t_max.data_ptr(), R, t_min,
         klo, pre, fs.det_bound, rpt, parts, ray_list.data_ptr(), count.data_ptr(),
@@ -338,18 +348,43 @@ def flash_closest_hit_attrs(fs: FlashScene, origin, direction, t_max, t_min=1e-3
     return out
 
 
+def _launch_visibility(fs: FlashScene, origin, direction, t_max, t_min, plan=None):
+    """K6′'s launch. `plan` = (rays a thread, parts of the split) overrides
+    the wrapper's choice (``rays_per_thread``; up to MAX_PARTS parts chosen
+    on the card from the live count) only to hold every launch path to the
+    plain version on small batches. Any t_min is taken. The scan forms each
+    live ray's features from origin, direction and the scene's center."""
+    R = _check(fs, origin, direction, t_max)
+    kernels.require(fs.center, "center", torch.float32, (3,))
+    dev = origin.device
+    num_tiles = fs.coef.shape[0] // TILE
+    if plan is None:
+        rpt = rays_per_thread(R)
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        max_parts, resident = MAX_PARTS, _resident_blocks(index, rpt, any_hit=True)
+    else:
+        # a resident count above any block count: exactly plan[1] parts
+        rpt, max_parts, resident = plan[0], plan[1], 1 << 30
+    vis = torch.empty(R, dtype=torch.float32, device=dev)
+    ray_list = torch.empty(R, dtype=torch.int32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    klo, pre = _pre_bounds(t_min)
+    err = kernels.lib().hr_flash_visibility(
+        fs.coef.data_ptr(), num_tiles, origin.data_ptr(), direction.data_ptr(),
+        fs.center.data_ptr(), t_max.data_ptr(), R, t_min, klo, pre,
+        fs.det_bound, rpt, max_parts, resident, ray_list.data_ptr(), count.data_ptr(),
+        vis.data_ptr(), kernels.stream_ptr())
+    kernels.check(err, "hr_flash_visibility")
+    return vis
+
+
 def flash_visibility(fs: FlashScene, origin, direction, t_max, t_min=1e-3):
     """K6′: any-hit visibility, (R,) 1.0 = unoccluded; a ray with
     t_max <= t_min is blocked (the flash rule). CPU tensors take the plain
-    version; CUDA tensors launch csrc/flashtrace.cu."""
+    version; CUDA tensors launch csrc/flashtrace.cu (any t_min)."""
     if kernels.on_cpu(origin):
         return flash_visibility_plain(fs, origin, direction, t_max, t_min)
-    R, feats = _check(fs, origin, direction, t_max)
-    vis = torch.empty(R, dtype=torch.float32, device=origin.device)
-    err = kernels.lib().hr_flash_visibility(
-        fs.coef.data_ptr(), fs.num_tris, feats.data_ptr(), t_max.data_ptr(), R, t_min,
-        vis.data_ptr(), kernels.stream_ptr())
-    kernels.check(err, "hr_flash_visibility")
+    vis = _launch_visibility(fs, origin, direction, t_max, t_min)
     flash_visibility.launches += 1
     return vis
 

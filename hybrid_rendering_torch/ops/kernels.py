@@ -66,7 +66,9 @@ _SIGNATURES = {
     "hr_flash_closest": [_P, _I, _P, _P, _P, _I, _F, _F, _I, _F, _I, _I, _P, _P, _P,
                          _P, _P, _P, _P, _P, _P],
     "hr_flash_closest_blocks_per_sm": [_I],
-    "hr_flash_visibility": [_P, _I, _P, _P, _I, _F, _P, _P],
+    "hr_flash_visibility": [_P, _I, _P, _P, _P, _P, _I, _F, _F, _I, _F, _I, _I, _I, _P, _P,
+                            _P, _P],
+    "hr_flash_visibility_blocks_per_sm": [_I],
     "hr_noop": [_P],
 }
 
