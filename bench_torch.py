@@ -86,10 +86,12 @@ def _error(e: BaseException) -> str:
     return f"{type(e).__name__}: {e}"[:200]
 
 
-def _build(scene_name, W, H, *, device, taa=True, debug=False, tracer_method="auto"):
+def _build(scene_name, W, H, *, device, taa=True, debug=False, tracer_method="auto",
+           animator=None):
     """The renderer as bench.py _build makes it: shadows FULL, AO HALF,
     reflections HALF, DDGI at the scene preset's rays and scale, TAA on
-    unless `taa` is False. `tracer_method` goes to HybridRenderer."""
+    unless `taa` is False. `tracer_method` and `animator` go to
+    HybridRenderer."""
     from hybrid_rendering_torch.config import (
         AOConfig, DDGIConfig, RayTraceScale, ReflectionsConfig, RendererConfig,
         ShadowsConfig, TAAConfig)
@@ -110,7 +112,7 @@ def _build(scene_name, W, H, *, device, taa=True, debug=False, tracer_method="au
     sky = ProceduralSky.create(light.direction.numpy()).to(device)
     irr_fn, pref_fn = make_env_fallbacks(sky.radiance, device=device)
     r = HybridRenderer(scene, cfg, sky.radiance, irr_fn, pref_fn, device=device,
-                       tracer_method=tracer_method)
+                       tracer_method=tracer_method, animator=animator)
     return r, light.to(device), camkw
 
 

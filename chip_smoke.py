@@ -8,6 +8,8 @@
     python3 chip_smoke.py --apps-only      (apps_phase alone: render_torch.py
                                             and viewer_torch.py; no result
                                             line)
+    python3 chip_smoke.py --scenes-only    (textured_phase and dynamic_phase
+                                            alone; no result line)
     python3 chip_smoke.py --profiler-effect  (K4 counted by short
                                             torch.profiler sessions before
                                             and after profiled runs; the
@@ -46,11 +48,20 @@ the bench frame (built by ``bench_torch._build``, timed by
 ``bench_torch._time_frames``) through ``HybridRenderer`` with every kernel
 counting its launches, renders the frame with DDGI and reflections off and
 the dense frame, holds a small moving-camera run on the card against the
-plain path on the CPU, renders the hero scene (sponza_scan, 249,765
+plain path on the CPU; renders a textured glTF scene written here
+(``textured_phase``: all four glTF maps, 1080p with K1-K5 counted, with
+and without its atlas in alternating runs, K1's rows against the plain
+walk, the surface fetch timed with and without the maps, 256x144 card
+against CPU, the maps changing the frame); renders the hero scene (sponza_scan, 249,765
 triangles) at 1920x1080: the BVH's build time and size, 1 + 4 frames with
 launch counters (K1-K5 launched, K6/K6′ not), and K1-K5 held against
-their plain versions on its own wavefronts and timed there; and runs the
-bench's fidelity section (gi_test at 256x256: 32 hybrid frames against a
+their plain versions on its own wavefronts and timed there; animates
+shadows_test's hero (``dynamic_phase``: 1080p with K1-K5 counted, the
+refit's ms a frame, no synchronizing call in the frame's posing, K1/K2
+on the refitted tree against their plain versions and against brute force on 65,536 rays of the moved soup, the
+motion plane of a static camera, 256x144 card against CPU, the refit of
+the hero scene's tree, and the frame through ``"flash_dense"`` with K6/K6′
+counted); runs the bench's fidelity section (gi_test at 256x256: 32 hybrid frames against a
 96-spp path-traced GT) through both tracers; then the K6/K6′ checks; then
 the apps (``apps_phase``): ``render_torch.py`` at 1920x1080, animated and
 env-lit with --profile and a checkpoint, alone on the card; then, in
@@ -94,6 +105,8 @@ import os
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -196,6 +209,11 @@ SKY_ORDER = (APPS_ENV, "hosek", "hosek", APPS_ENV, APPS_ENV, "hosek")
 SKY_FRAMES = 3
 SKY_REPS = 10
 APPS_OUT = os.path.join(ROOT, "chiprun_out", "apps")
+# textured_phase's camera; dynamic_phase's moving instance (shadows_test's
+# hero), its centre, and the rays held against brute force on the moved soup
+TEXTURED_CAMERA = dict(eye=(6.5, 4.0, 7.5), target=(0.0, 0.8, 0.0))
+HERO_INSTANCE, HERO_CENTER = 13, (0.0, 1.8, 0.0)
+DYNAMIC_SAMPLE = 65_536
 # the frames of profile_phase's per-pass run and of each of its
 # torch.profiler sessions
 PROFILE_FRAMES = 3
@@ -235,6 +253,36 @@ def cuda_ms(fn, reps, queued=False):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def synchronizing_calls(fn):
+    """Calls fn() with PyTorch's CUDA sync debug mode set to warn; returns,
+    for each call in it that made the host wait for the card (a blocking
+    copy, a read of a device value), "file:line" of the innermost line of
+    this repo on the stack, and the warning's own line where that lies
+    outside the repo."""
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return  # the mode's own notice that it is a prototype
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if os.path.abspath(f.filename).startswith(ROOT + os.sep)]
+        site = f"{os.path.relpath(ours[-1].filename, ROOT)}:{ours[-1].lineno}" if ours else "?"
+        if not os.path.abspath(filename).startswith(ROOT + os.sep):
+            site += f" (in {os.path.basename(filename)}:{lineno})"
+        sites.append(site)
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
 
 
 def bound(nbytes, ops):
@@ -1376,13 +1424,17 @@ def compare_runs(runs, label):
                       f"{label} frame {f} {key}: max {d.max()} mean {d.mean()}")
 
 
-def small_phase(dev):
+def small_phase(dev, build=None, label="bench frame"):
     """Three moving-camera frames at 256x144 on the card (kernels) and on
     the CPU (plain versions), DDGI and reflections on; every plane
-    compared."""
+    compared. `build(w, h, device)` -> (renderer, light, camera kwargs),
+    with debug outputs on; the bench frame's by default."""
+    if build is None:
+        def build(w, h, device):
+            return bench_torch._build(SCENE, w, h, device=device, debug=True)
     runs = {}
     for device in (dev, torch.device("cpu")):
-        r, light, camkw = bench_torch._build(SCENE, SMALL_W, SMALL_H, device=device, debug=True)
+        r, light, camkw = build(SMALL_W, SMALL_H, device)
         state, prev, frames = r.create_state(), None, []
         for f in range(3):
             eye = tuple(np.asarray(camkw["eye"]) + [EYE_STEP * f, 0.0, 0.0])
@@ -1391,7 +1443,423 @@ def small_phase(dev):
             out, state = r.render_frame(state, cam, light)
             frames.append({k: v.cpu().numpy() for k, v in out.items()})
         runs[device.type] = frames
-    compare_runs(runs, "bench frame")
+    compare_runs(runs, label)
+
+
+# ---------------------------------------------------------------------------
+# scenes: a textured glTF file and an animated shadows_test
+# ---------------------------------------------------------------------------
+
+
+def _png_bytes(img):
+    import io
+
+    from hybrid_rendering_torch.utils.image import write_png
+
+    buf = io.BytesIO()
+    write_png(buf, np.asarray(img, np.float32))
+    return buf.getvalue()
+
+
+def write_textured_glb(path):
+    """A .glb of scene/primitives.py shapes that uses all four glTF map
+    kinds: a 16 x 16 ground with a checkerboard base colour and a normal
+    map tilted about both tangent axes; a box and a pillar with a
+    metallic-roughness map whose G (roughness) and B (metallic) differ; a
+    sphere with an emissive map and the checkerboard. Nodes: a root with a
+    translation, children placed by TRS and by a matrix. The ground tilts
+    0.08 rad about z: on a level ground a camera without roll sees equal
+    depths along each image row, where TAA's velocity dilation picks its
+    motion by the last ulp of depth, which the card and the CPU round
+    apart (level, the LDR plane read 0.087 from the CPU's at a checker
+    edge against LDR_MAX 0.1 on an H100); its normal map keeps its curvature
+    off 0, so the reflections' `curvature == 0` test does not flip there.
+    Returns the number of triangles written."""
+    import struct as pystruct
+
+    from hybrid_rendering_torch.scene import primitives as prim
+    from hybrid_rendering_torch.scene.textures import checkerboard
+
+    n = 128
+    yy, xx = np.meshgrid(np.arange(n) / n, np.arange(n) / n, indexing="ij")
+    tilt = np.stack([0.35 * np.sin(2 * np.pi * 4 * xx), 0.35 * np.cos(2 * np.pi * 3 * yy),
+                     np.ones_like(xx)], -1)
+    tilt /= np.linalg.norm(tilt, axis=-1, keepdims=True)
+    mr = np.stack([np.zeros_like(xx), 0.15 + 0.7 * (xx > 0.5), 0.9 * (yy > 0.5)], -1)
+    images = [checkerboard(256, a=(0.9, 0.85, 0.8), b=(0.15, 0.2, 0.3), cells=16),
+              tilt * 0.5 + 0.5, mr,
+              np.random.RandomState(0).uniform(size=(16, 16, 3))]
+    blob = bytearray()
+    views, accessors = [], []
+
+    def view(data):
+        blob.extend(b"\x00" * (-len(blob) % 4))
+        views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": len(data)})
+        blob.extend(data)
+        return len(views) - 1
+
+    def accessor(arr, kind, ctype):
+        accessors.append({"bufferView": view(arr.tobytes()), "componentType": ctype,
+                          "count": len(arr), "type": kind})
+        return len(accessors) - 1
+
+    meshes = []
+    shapes = [(prim.plane(16.0, 16.0), 0), (prim.box(2.0, 2.0, 2.0), 1),
+              (prim.uv_sphere(1.2, 24, 48), 2), (prim.cylinder(radius=0.6, height=3.0), 3)]
+    triangles = 0
+    for mesh, material in shapes:
+        triangles += mesh.num_triangles
+        meshes.append({"primitives": [{
+            "attributes": {"POSITION": accessor(mesh.positions.astype(np.float32), "VEC3", 5126),
+                           "NORMAL": accessor(mesh.normals.astype(np.float32), "VEC3", 5126),
+                           "TEXCOORD_0": accessor(mesh.uvs.astype(np.float32), "VEC2", 5126)},
+            "indices": accessor(mesh.indices.astype(np.uint32).ravel(), "SCALAR", 5125),
+            "material": material}]})
+    pillar = np.eye(4, dtype=np.float32)
+    pillar[:3, 3] = (0.0, 1.5, -4.0)
+    quarter = [0.0, float(np.sin(np.pi / 8)), 0.0, float(np.cos(np.pi / 8))]  # 45 deg about y
+    tilt_z = [0.0, 0.0, float(np.sin(0.04)), float(np.cos(0.04))]  # 0.08 rad about z
+    doc = {
+        "asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": [0]}],
+        "nodes": [{"children": [1, 2, 3, 4], "translation": [0.0, 0.0, 0.0]},
+                  {"mesh": 0, "rotation": tilt_z},
+                  {"mesh": 1, "translation": [-3.5, 1.0, 0.5], "rotation": quarter},
+                  {"mesh": 2, "translation": [3.0, 1.2, 0.0], "scale": [1.0, 1.0, 1.0]},
+                  {"mesh": 3, "matrix": pillar.T.ravel().tolist()}],
+        "meshes": meshes,
+        "materials": [
+            {"pbrMetallicRoughness": {"baseColorTexture": {"index": 0}, "roughnessFactor": 0.7,
+                                      "metallicFactor": 0.0},
+             "normalTexture": {"index": 1}},
+            {"pbrMetallicRoughness": {"baseColorFactor": [0.8, 0.35, 0.25, 1.0],
+                                      "metallicRoughnessTexture": {"index": 2}}},
+            {"pbrMetallicRoughness": {"baseColorTexture": {"index": 0}, "metallicFactor": 0.0},
+             "emissiveTexture": {"index": 3}, "emissiveFactor": [1.5, 1.2, 0.8]},
+            {"pbrMetallicRoughness": {"baseColorFactor": [0.6, 0.7, 0.8, 1.0],
+                                      "metallicRoughnessTexture": {"index": 2}},
+             "normalTexture": {"index": 1}}],
+        "textures": [{"source": i} for i in range(len(images))],
+        "images": [{"bufferView": view(_png_bytes(im)), "mimeType": "image/png"}
+                   for im in images],
+    }
+    blob.extend(b"\x00" * (-len(blob) % 4))
+    doc.update(bufferViews=views, accessors=accessors, buffers=[{"byteLength": len(blob)}])
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    with open(path, "wb") as f:
+        f.write(pystruct.pack("<III", 0x46546C67, 2, 12 + 8 + len(js) + 8 + len(blob)))
+        f.write(pystruct.pack("<II", len(js), 0x4E4F534A) + js)
+        f.write(pystruct.pack("<II", len(blob), 0x004E4942) + bytes(blob))
+    return triangles
+
+
+def textured_build(scene, debug=False):
+    """build(w, h, device) -> the bench frame's renderer (bench.py _build's
+    config: shadows FULL, AO HALF, reflections HALF, DDGI at its defaults,
+    TAA) over `scene`, lit as shadows_test is."""
+    from hybrid_rendering_torch.config import (
+        AOConfig, DDGIConfig, RayTraceScale, ReflectionsConfig, RendererConfig,
+        ShadowsConfig, TAAConfig)
+    from hybrid_rendering_torch.models.renderer import HybridRenderer
+    from hybrid_rendering_torch.ops.sh import make_env_fallbacks
+    from hybrid_rendering_torch.ops.sky import ProceduralSky
+    from hybrid_rendering_torch.types import Light
+
+    def build(w, h, device):
+        cfg = RendererConfig(width=w, height=h, debug_outputs=debug,
+                             shadows=ShadowsConfig(scale=RayTraceScale.FULL),
+                             ao=AOConfig(scale=RayTraceScale.HALF),
+                             reflections=ReflectionsConfig(scale=RayTraceScale.HALF),
+                             ddgi=DDGIConfig(), taa=TAAConfig(enabled=True))
+        light = Light.directional((0.35, 0.9, 0.25), color=(1.0, 0.96, 0.9), intensity=3.0,
+                                  radius=0.05)
+        sky = ProceduralSky.create(light.direction.numpy()).to(device)
+        irr, pref = make_env_fallbacks(sky.radiance, device=device)
+        r = HybridRenderer(scene, cfg, sky.radiance, irr, pref, device=device)
+        return r, light.to(device), TEXTURED_CAMERA
+
+    return build
+
+
+def primary_rays(cam, w, h):
+    """The camera's primary rays, flat: (origins, directions, t_max)."""
+    from hybrid_rendering_torch.ops.math3d import INF_T
+    from hybrid_rendering_torch.utils import camera as camera_utils
+
+    o, d = camera_utils.camera_rays(cam, w, h)
+    o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+    return o, d, torch.full((o.shape[0],), INF_T, device=o.device)
+
+
+def textured_phase(dev, counters):
+    """A textured glTF scene through the port: write_textured_glb's file
+    loaded by load_gltf_scene, rendered at 1920x1080 with the bench frame's
+    passes: 1 + TIMED_FRAMES frames with the launch counters set to 0 just
+    before and read just after (K1-K5 launched); the same scene with and
+    without its atlas timed in alternating runs; K1's rows on the primary
+    rays against the plain walk's; three moving-camera frames at 256x144
+    on the card against the CPU; and one 256x144 frame with the atlas
+    removed, which must give another LDR frame. Returns ms/frame."""
+    import tempfile
+
+    from hybrid_rendering_torch.ops import bvh
+    from hybrid_rendering_torch.scene.fetch import surface_from_attrs
+    from hybrid_rendering_torch.scene.gltf import load_gltf_scene
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "textured.glb")
+        written = write_textured_glb(path)
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        scene = load_gltf_scene(path)
+        load_s = time.perf_counter() - t0
+    check(scene.num_triangles == written, f"textured: {scene.num_triangles} of {written} triangles")
+    check(scene.materials.maps == {"albedo_tex", "normal_tex", "roughness_tex", "metallic_tex",
+                                   "emissive_tex"}, f"textured: maps {scene.materials.maps}")
+    print(f"textured: {size} bytes of .glb, {scene.num_triangles} triangles, "
+          f"{scene.atlas.num_textures} textures in a {tuple(scene.atlas.image.shape[:2])} atlas, "
+          f"loaded in {load_s:.2f} s")
+    build = textured_build(scene)
+    r, light, camkw = build(W, H, dev)
+    zero_counts(counters)
+    ms, _, out = bench_torch._time_frames(r, light, camkw, TIMED_FRAMES)
+    launches = read_counts(counters)
+    per_frame = {k: n / (TIMED_FRAMES + 1) for k, n in launches.items()}
+    print(f"textured frame: {W}x{H}, DDGI {r.probe_grid.counts} = {r.probe_grid.num_probes} "
+          f"probes: {ms:.2f} ms/frame over {TIMED_FRAMES} frames, launches {launches} "
+          f"({per_frame} per frame)")
+    check_ldr(out["ldr"], "textured frame")
+    for k in ("K1", "K2", "K3", "K4", "K5"):
+        check(launches[k] > 0, f"{k} was not launched on the textured frame")
+    del out
+    # what the maps cost: the same scene without its atlas, in alternating runs
+    r_plain = textured_build(dataclasses.replace(scene, atlas=None))(W, H, dev)[0]
+    readings = {"maps": [], "no maps": []}
+    for name, rr in (("no maps", r_plain), ("maps", r), ("no maps", r_plain), ("maps", r)):
+        readings[name].append(bench_torch._time_frames(rr, light, camkw, TIMED_FRAMES_OFF)[0])
+    print("textured frame with and without its maps, alternating runs of "
+          f"{TIMED_FRAMES_OFF} frames: " + "; ".join(
+              f"{k} " + ", ".join(f"{v:.2f}" for v in vs) + " ms/frame"
+              for k, vs in readings.items()))
+    del r_plain
+    cam = r.make_camera(camkw["eye"], camkw["target"], 0)
+    rays = primary_rays(cam, W, H)
+    check_k1(r.trace_scene, rays, "textured", "primary")
+    # the surface fetch of the primary rays with and without the maps
+    hit, attrs = bvh.closest_hit_attrs(r.trace_scene, *rays)
+    plain = dataclasses.replace(r.scene, atlas=None)
+    fetch_ms = {name: (cuda_ms(lambda: surface_from_attrs(sc, rays[0], rays[1], hit, attrs), 10),
+                       cuda_ms(lambda: surface_from_attrs(sc, rays[0], rays[1], hit, attrs), 10,
+                               queued=True))
+                for name, sc in (("maps", r.scene), ("no maps", plain))}
+    print(f"textured: surface_from_attrs on the {rays[0].shape[0]} primary rays, ms one by one / "
+          f"queued: " + "; ".join(f"{k} {a:.3f} / {q:.3f}" for k, (a, q) in fetch_ms.items()))
+    # a row gather both ways, PyTorch's and math3d.take_rows: one bilinear
+    # tap of the atlas (16-byte texels), and tables of 24- and 64-byte rows
+    # (a float32 6-vector, a 4x4 matrix) at the same indices
+    from hybrid_rendering_torch.ops.math3d import take_rows
+
+    texels = r.scene.atlas.image.reshape(-1, 4)
+    lin = torch.randint(texels.shape[0], (rays[0].shape[0],), device=dev)
+    tables = {16: texels, 24: torch.rand((texels.shape[0], 6), device=dev),
+              64: torch.rand((texels.shape[0], 4, 4), device=dev)}
+    gathers = []
+    for nbytes, table in tables.items():
+        check(torch.equal(take_rows(table, lin), table[lin]),
+              f"take_rows differs from indexing on {nbytes}-byte rows")
+        gathers.append(f"{nbytes} bytes: table[idx] "
+                       f"{cuda_ms(lambda: table[lin], 10, queued=True):.3f}, take_rows "
+                       f"{cuda_ms(lambda: take_rows(table, lin), 10, queued=True):.3f}")
+    print(f"textured: a gather of {lin.shape[0]} rows from {texels.shape[0]} (ms queued), "
+          + "; ".join(gathers))
+    small_phase(dev, textured_build(scene, debug=True), "textured frame")
+    ldr = {}
+    for name, sc in (("maps", scene), ("no maps", dataclasses.replace(scene, atlas=None))):
+        rs, ls, ck = textured_build(sc)(SMALL_W, SMALL_H, dev)
+        out, _ = rs.render_frame(rs.create_state(), rs.make_camera(ck["eye"], ck["target"], 0), ls)
+        ldr[name] = out["ldr"]
+    diff = (ldr["maps"] - ldr["no maps"]).abs().amax(dim=-1)
+    print(f"textured vs its maps removed, {SMALL_W}x{SMALL_H} LDR: {(diff > 0.01).float().mean():.2%} "
+          f"of pixels beyond 0.01, mean {diff.mean():.4f}")
+    check((diff > 0.01).float().mean().item() > 0.2, "the maps hardly change the frame")
+    return ms
+
+
+def hero_animator(frame, device=None):
+    """shadows_test's hero (instance HERO_INSTANCE) turned about y around
+    its centre by 0.3 rad a frame and moved by (0.4, 0.05, -0.2) a frame;
+    every other instance at identity. (14, 4, 4) float32."""
+    c, s = np.cos(0.3 * frame), np.sin(0.3 * frame)
+    rot = np.eye(4)
+    rot[0, 0], rot[0, 2], rot[2, 0], rot[2, 2] = c, s, -s, c
+    to, back = np.eye(4), np.eye(4)
+    to[:3, 3] = np.asarray(HERO_CENTER) + np.asarray([0.4, 0.05, -0.2]) * frame
+    back[:3, 3] = -np.asarray(HERO_CENTER)
+    m = np.tile(np.eye(4), (14, 1, 1))
+    m[HERO_INSTANCE] = to @ rot @ back
+    return torch.as_tensor(m.astype(np.float32), device=device)
+
+
+def refit_ms(scene, accel, transforms, method="auto"):
+    """A refit (the soup re-posed by `transforms` and the trace structures
+    refitted): (ms launched one by one, ms queued) over 20 calls."""
+    from hybrid_rendering_torch.ops import bvh
+    from hybrid_rendering_torch.scene import dynamic
+
+    def refit():
+        return bvh.refit_accel(accel, dynamic.refit_scene(scene, transforms), method)
+
+    return cuda_ms(refit, 20), cuda_ms(refit, 20, queued=True)
+
+
+def dynamic_phase(dev, counters, hero=None):
+    """shadows_test with hero_animator through HybridRenderer(animator=) at
+    1920x1080 with the bench frame's passes: 1 + TIMED_FRAMES frames with
+    the launch counters set to 0 just before and read just after (K1-K5
+    launched), and the refit's ms a frame; no call of posed_tracers that
+    makes the host wait for the card, and a whole frame that waits no more
+    often than the same renderer's frame without its animator; K1
+    and K2 on the refitted tree against their plain versions and against
+    brute force on the moved soup; the motion plane of a static camera; three frames at 256x144 on
+    the card against the CPU; the refit of the hero scene's tree (`hero`:
+    (scene, TraceScene) on the card, built here when None); and 1 + 2
+    frames with tracer_method="flash_dense" (K6 and K6′ launched, K1 and K2
+    not). Returns (ms/frame, refit ms)."""
+    from hybrid_rendering_torch.models import gbuffer
+    from hybrid_rendering_torch.ops import bvh, intersect
+    from hybrid_rendering_torch.ops.math3d import normalize3
+    from hybrid_rendering_torch.scene import dynamic
+    from hybrid_rendering_torch.utils import camera as camera_utils
+
+    r, light, camkw = bench_torch._build(SCENE, W, H, device=dev, animator=hero_animator)
+    zero_counts(counters)
+    ms, _, out, state, frame_cam, _ = bench_torch._time_frames(r, light, camkw, TIMED_FRAMES,
+                                                               keep_state=True)
+    launches = read_counts(counters)
+    per_frame = {k: n / (TIMED_FRAMES + 1) for k, n in launches.items()}
+    check_ldr(out["ldr"], "dynamic frame")
+    for k in ("K1", "K2", "K3", "K4", "K5"):
+        check(launches[k] > 0, f"{k} was not launched on the dynamic frame")
+    for k in ("K6", "K6′"):
+        check(launches[k] == 0, f"{k} was launched on the dynamic frame")
+    del out
+    # the pose of a frame reaches the card without making the host wait:
+    # the next frame (the animator called once, its last pose kept) and a
+    # frame out of order (both poses copied); then a whole frame, which
+    # waits no more often than the same renderer's frame without animator
+    f = state.frame_index
+    waits = synchronizing_calls(lambda: (r.posed_tracers(f), r.posed_tracers(3)))
+    frame_waits = synchronizing_calls(lambda: r.render_frame(state, frame_cam, light))
+    r.animator = None
+    static_waits = synchronizing_calls(lambda: r.render_frame(state, frame_cam, light))
+    r.animator = hero_animator
+    sites = sorted({w: frame_waits.count(w) for w in frame_waits}.items())
+    print(f"dynamic: synchronizing calls in posed_tracers: {waits or 'none'}; in a whole "
+          f"dynamic frame: {len(frame_waits)} (the frame without animator: "
+          f"{len(static_waits)}), by site: {sites}")
+    check(not waits, f"posed_tracers waits for the card at {waits}")
+    check(len(frame_waits) <= len(static_waits),
+          f"the dynamic frame waits for the card {len(frame_waits)} times, the static one "
+          f"{len(static_waits)}")
+    m = hero_animator(3, dev)
+    one, queued = refit_ms(r.scene, r.trace_scene, m)
+    print(f"dynamic frame: {SCENE} {W}x{H}, the hero animated: {ms:.2f} ms/frame over "
+          f"{TIMED_FRAMES} frames, launches {launches} ({per_frame} per frame); the refit "
+          f"({r.scene.num_triangles} triangles, {r.trace_scene.nodes_min.shape[0]} nodes, "
+          f"{len(r.trace_scene.plan.levels)} levels, {r.trace_scene.wide_packed.shape[0]} wide "
+          f"nodes): {one:.3f} ms a frame one by one, {queued:.3f} queued")
+
+    # K1 and K2 on the refitted tree (frame 3's pose, a camera without jitter)
+    moved = dynamic.refit_scene(r.scene, m)
+    rts = bvh.refit_accel(r.trace_scene, moved)
+    cam = camera_utils.make_camera(camkw["eye"], camkw["target"], width=W, height=H, device=dev)
+    o, d, tm = primary_rays(cam, W, H)
+    check_k1(rts, (o, d, tm), "dynamic", "primary, refitted tree")
+    hit, attrs = bvh.closest_hit_attrs(rts, o, d, tm)
+    valid = hit.valid
+    on_hero = valid & (attrs[:, 16].round() == HERO_INSTANCE)
+    p = o + hit.t[:, None] * d + attrs[:, 17:20] * 1e-3
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ao_dir = normalize3(attrs[:, 17:20] + normalize3(
+        torch.randn(d.shape, device=dev, generator=gen)))
+    sun = light.direction.expand_as(p)
+    vis_o = torch.cat([p[valid], p[valid]])
+    vis_d = torch.cat([sun[valid], ao_dir[valid]]).contiguous()
+    vis_tm = torch.cat([torch.full((int(valid.sum()),), float("inf"), device=dev),
+                        torch.full((int(valid.sum()),), 1.0, device=dev)])
+    check_k2(rts, (vis_o.contiguous(), vis_d, vis_tm), "dynamic", "shadow + AO, refitted tree")
+    # brute force on the moved soup: a sample of SAMPLE rays, half on the hero
+    k = DYNAMIC_SAMPLE // 2
+    hero_idx = torch.nonzero(on_hero).squeeze(1)
+    idx = torch.cat([hero_idx[torch.randint(hero_idx.numel(), (k,), device=dev, generator=gen)],
+                     torch.randint(o.shape[0], (k,), device=dev, generator=gen)])
+    ref = intersect.closest_hit_brute(moved.tri_pos, o[idx], d[idx], tm[idx])
+    check(torch.equal(hit.valid[idx], ref.valid),
+          "K1 on the refitted tree: hit/miss differs from brute")
+    differ = hit.tri_id[idx] != ref.tri_id
+    tie = bool(((hit.t[idx] - ref.t).abs() <= 1e-5 * ref.t.abs())[differ].all())
+    agree = 1.0 - differ.float().mean().item()
+    check(agree >= K1_MIN_AGREE and tie, f"K1 vs brute on the moved soup: tri_id agree {agree}")
+    vidx = torch.randint(vis_o.shape[0], (DYNAMIC_SAMPLE,), device=dev, generator=gen)
+    vis = bvh.visibility(rts, vis_o[vidx].contiguous(), vis_d[vidx].contiguous(), vis_tm[vidx])
+    vref = intersect.occluded_brute(moved.tri_pos, vis_o[vidx], vis_d[vidx], vis_tm[vidx])
+    check(torch.equal(vis, vref), "K2 on the refitted tree: visibility differs from brute")
+    # K2 through the stale tree must miss some of the moved hero's shadow
+    stale = bvh.visibility(r.trace_scene, vis_o[vidx].contiguous(), vis_d[vidx].contiguous(),
+                           vis_tm[vidx])
+    print(f"dynamic: K1 vs brute on {DYNAMIC_SAMPLE} rays ({k} on the hero) of the moved soup: "
+          f"tri_id agree {agree:.6f} (other ids only at ties of t); K2 vs brute on "
+          f"{DYNAMIC_SAMPLE} shadow + AO rays: equal, unoccluded {vis.mean().item():.4f}; the "
+          f"unrefitted tree would answer {(stale != vref).sum().item()} of them otherwise")
+
+    # the motion plane, static camera, frame 3
+    surf_fn, _, deltas = r.posed_tracers(3)
+    gb = gbuffer.render_gbuffer(surf_fn, cam, W, H, motion_deltas=deltas)
+    mesh = gb.mesh_id
+    motion = gb.motion.abs().amax(dim=-1)
+    hero_px = mesh == HERO_INSTANCE
+    static = (mesh >= 0) & ~hero_px
+    print(f"dynamic: motion plane, static camera: hero {int(hero_px.sum())} pixels, median "
+          f"|motion| {motion[hero_px].median().item():.4g}; static geometry max "
+          f"{motion[static].max().item():.3g}")
+    check(int(hero_px.sum()) > 1000 and motion[hero_px].median().item() > 1e-3,
+          "the moving hero has no motion")
+    check(motion[static].max().item() <= 1e-4, "static geometry moves in the motion plane")
+    del gb, r, state
+
+    small_phase(dev, lambda w, h, device: bench_torch._build(
+        SCENE, w, h, device=device, debug=True, animator=hero_animator), "dynamic frame")
+
+    if hero is None:
+        from hybrid_rendering_torch.scene.scenes import load_scene
+
+        hero_scene = load_scene(HERO_SCENE)[0].to(dev)
+        hero = hero_scene, bvh.make_accel(hero_scene)
+    hero_scene, hero_ts = hero
+    num_i = int(hero_scene.tri_mesh_id.max()) + 1
+    hm = dynamic.identity_transforms(num_i, dev).clone()
+    hm[num_i // 2] = hero_animator(2, dev)[HERO_INSTANCE]
+    h_one, h_queued = refit_ms(hero_scene, hero_ts, hm)
+    print(f"dynamic: the refit of {HERO_SCENE}'s tree ({hero_scene.num_triangles} triangles, "
+          f"{hero_ts.nodes_min.shape[0]} nodes, {len(hero_ts.plan.levels)} levels, "
+          f"{hero_ts.wide_packed.shape[0]} wide nodes, {num_i} instances, one moved): "
+          f"{h_one:.3f} ms one by one, {h_queued:.3f} queued")
+
+    r, light, camkw = bench_torch._build(SCENE, W, H, device=dev, tracer_method="flash_dense",
+                                        animator=hero_animator)
+    zero_counts(counters)
+    dms, _, out = bench_torch._time_frames(r, light, camkw, 2)
+    launches = read_counts(counters)
+    check_ldr(out["ldr"], "dynamic dense frame")
+    for k in ("K6", "K6′"):
+        check(launches[k] > 0, f"{k} was not launched on the dynamic dense frame")
+    for k in ("K1", "K2"):
+        check(launches[k] == 0, f"{k} was launched on the dynamic dense frame")
+    d_one, d_queued = refit_ms(r.scene, r.trace_scene, m, "flash_dense")
+    print(f"dynamic dense frame (tracer_method=\"flash_dense\"): {dms:.2f} ms/frame over 2 "
+          f"frames, launches {launches}; make_flash_scene on the moved soup {d_one:.3f} ms one "
+          f"by one, {d_queued:.3f} queued")
+    return ms, one
 
 
 def run_cli(label, argv, out):
@@ -1676,7 +2144,8 @@ def hero_phase(dev, counters):
     HERO_FRAMES frames with the launch counters set to 0 just before and
     read just after (K1-K5 launched, K6/K6′ not); then K1-K5 held against
     their plain versions on the hero's own wavefronts and timed there,
-    with the plain walk's seconds: the walk kernels on a deep tree."""
+    with the plain walk's seconds: the walk kernels on a deep tree.
+    Returns the hero's (scene, TraceScene) on the card."""
     from hybrid_rendering_torch.ops import bvh
     from hybrid_rendering_torch.scene import native
 
@@ -1720,6 +2189,7 @@ def hero_phase(dev, counters):
     print(f"hero: the plain walk took {times['K1'][1] / 1e3:.2f} s on the "
           f"{wf['primary'][0].shape[0]} primary rays and {times['K2'][1] / 1e3:.2f} s on the "
           f"{wf['vis_rays'][0].shape[0]} shadow + AO rays; max abs err {errs}")
+    return r.scene, r.trace_scene
 
 
 def bench_phase():
@@ -1990,6 +2460,12 @@ def main() -> int:
         # on the apps; prints no result line
         apps_phase(dev, counters, card)
         return 0
+    if "--scenes-only" in sys.argv[1:]:
+        # textured_phase and dynamic_phase alone: a short call for work on
+        # textures, loaders and dynamic scenes; prints no result line
+        textured_phase(dev, counters)
+        dynamic_phase(dev, counters)
+        return 0
     t = lap("build", t0)
     timed = kernel_phase(dev)
     t = lap("kernel_phase", t)
@@ -2005,8 +2481,13 @@ def main() -> int:
     t = lap("dense_slice_phase", t)
     small_phase(dev)
     t = lap("small_phase", t)
-    hero_phase(dev, counters)
+    textured_phase(dev, counters)
+    t = lap("textured_phase", t)
+    hero = hero_phase(dev, counters)
     t = lap("hero_phase", t)
+    dynamic_phase(dev, counters, hero)
+    del hero
+    t = lap("dynamic_phase", t)
     fidelity_phase(dev, counters)
     t = lap("fidelity_phase", t)
     timed.update(dense_phase(dev))

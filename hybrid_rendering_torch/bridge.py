@@ -21,6 +21,7 @@ from hybrid_rendering_torch.models.reflections import ReflectionsState
 from hybrid_rendering_torch.models.renderer import RenderState
 from hybrid_rendering_torch.models.shadows import ShadowsState
 from hybrid_rendering_torch.models.taa import TAAState
+from hybrid_rendering_torch.scene.textures import TextureAtlas
 from hybrid_rendering_torch.types import Camera, GBuffer, Light, Material, SceneArrays
 
 
@@ -29,24 +30,27 @@ def _t(a, device=None, dtype=None):
 
 
 def scene_from_jax(scene, device=None) -> SceneArrays:
-    """JAX ``SceneArrays`` -> port ``SceneArrays`` (untextured only)."""
+    """JAX ``SceneArrays`` -> port ``SceneArrays``, its texture atlas and
+    material map columns included."""
     mats = scene.materials
-    if scene.atlas is not None or any(
-            getattr(mats, f) is not None and (np.asarray(getattr(mats, f)) >= 0).any()
-            for f in ("albedo_tex", "normal_tex", "roughness_tex", "metallic_tex",
-                      "emissive_tex")):
-        raise NotImplementedError("textured scenes are not ported yet")
     opt = {}
     for f in ("bvh_nodes_min", "bvh_nodes_max", "bvh_nodes_meta", "bvh_tri_order"):
         v = getattr(scene, f)
         opt[f] = None if v is None else _t(v, device)
+    cols = {f: None if getattr(mats, f) is None else _t(getattr(mats, f), device)
+            for f in ("albedo_tex", "normal_tex", "roughness_tex", "metallic_tex",
+                      "emissive_tex", "roughness_channel", "metallic_channel")}
+    atlas = scene.atlas
+    if atlas is not None:
+        atlas = TextureAtlas(image=_t(atlas.image, device), rects=_t(atlas.rects, device))
     return SceneArrays(
         tri_pos=_t(scene.tri_pos, device), tri_normal=_t(scene.tri_normal, device),
         tri_uv=_t(scene.tri_uv, device), tri_mat=_t(scene.tri_mat, device),
         tri_mesh_id=_t(scene.tri_mesh_id, device),
         materials=Material(albedo=_t(mats.albedo, device), roughness=_t(mats.roughness, device),
-                           metallic=_t(mats.metallic, device), emissive=_t(mats.emissive, device)),
-        tri_tangent=_t(scene.tri_tangent, device), **opt,
+                           metallic=_t(mats.metallic, device), emissive=_t(mats.emissive, device),
+                           **cols),
+        tri_tangent=_t(scene.tri_tangent, device), atlas=atlas, **opt,
     )
 
 

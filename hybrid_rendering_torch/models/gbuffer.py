@@ -2,7 +2,9 @@
 metallic, normal, motion, roughness, curvature, mesh_id, linear z, NDC
 depth, position), as ``hybrid_rendering_tpu/models/gbuffer.py`` does in
 place of the reference's raster G-buffer (src/g_buffer.{h,cpp}).
-Static scenes: motion vectors come from camera reprojection alone."""
+Motion vectors come from camera reprojection of the hit, re-posed first
+through its instance's previous transform when the scene is animated
+(g_buffer.vert:71-84)."""
 from __future__ import annotations
 
 from typing import Callable
@@ -10,6 +12,7 @@ from typing import Callable
 import torch
 
 from hybrid_rendering_torch.ops.math3d import INF_T, transform_h
+from hybrid_rendering_torch.scene.dynamic import prev_positions
 from hybrid_rendering_torch.types import Camera, GBuffer
 from hybrid_rendering_torch.utils import camera as camera_utils
 
@@ -33,9 +36,11 @@ def _uv_of(ndc):
 
 
 def render_gbuffer(closest_surface_fn: Callable, camera: Camera, width: int,
-                   height: int) -> GBuffer:
+                   height: int, motion_deltas=None) -> GBuffer:
     """Trace primary rays and fill every G-buffer plane.
-    closest_surface_fn: from ops.bvh.make_surface_tracer."""
+    closest_surface_fn: from ops.bvh.make_surface_tracer. motion_deltas:
+    (I, 4, 4) per-instance maps from the current to the previous pose
+    (scene/dynamic.py ``motion_deltas``), or None for a static scene."""
     origins, dirs = camera_utils.camera_rays(camera, width, height)
     hit, surf = closest_surface_fn(origins, dirs, INF_T)
 
@@ -50,7 +55,10 @@ def render_gbuffer(closest_surface_fn: Callable, camera: Camera, width: int,
     linear_z = torch.where(vmask, -view_pos[..., 2], camera.far)
 
     # motion = prev_uv - curr_uv of the same world point (g_buffer.frag:55-67)
-    ndc_prev = _ndc_from_world(camera.prev_view_proj, pos)
+    pos_prev = pos
+    if motion_deltas is not None:
+        pos_prev = prev_positions(pos, surf.mesh_id, motion_deltas)
+    ndc_prev = _ndc_from_world(camera.prev_view_proj, pos_prev)
     motion = torch.where(vm3, _uv_of(ndc_prev) - _uv_of(ndc), 0.0)
 
     curvature = screen_curvature(torch.where(vm3, normal, 0.0), vmask)

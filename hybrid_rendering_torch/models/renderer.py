@@ -12,6 +12,11 @@ light)`` returns (outputs, state) with `state` updated in place — each
 temporal buffer is rebound to this frame's tensor, so the previous frame's
 buffers are freed as soon as the frame is done (what buffer donation does
 in the JAX package).
+
+Dynamic scenes: with an ``animator(frame_index) -> (I, 4, 4)`` the frame
+first re-poses the soup and refits the trace structures on the device
+(the reference's per-frame TLAS build, main.cpp:74), traces every pass
+against them and hands the G-buffer the instances' motion.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from hybrid_rendering_torch.models import (
 )
 from hybrid_rendering_torch.ops import bvh as bvh_mod
 from hybrid_rendering_torch.ops import ddgi_sample, filters
+from hybrid_rendering_torch.scene import dynamic
 from hybrid_rendering_torch.types import Camera, GBuffer, Light, SceneArrays
 from hybrid_rendering_torch.utils import camera as camera_utils
 
@@ -65,13 +71,17 @@ class HybridRenderer:
     lives on `device`: the GPU unless the caller passes ``device="cpu"``
     (there is no silent move to the CPU when no GPU is present).
     `tracer_method` is ``bvh.make_tracers``'s method: "auto" (the BVH walk,
-    K1/K2) or "flash_dense" (K6/K6′) among others."""
+    K1/K2) or "flash_dense" (K6/K6′) among others. `animator`, a host
+    function of the Python frame index returning (I, 4, 4) rigid
+    per-instance transforms (indexed by the scene's mesh ids), makes the
+    scene dynamic; the probe grid stays the one of the base scene."""
 
     def __init__(self, scene: SceneArrays, config: RendererConfig,
                  sky_radiance_fn: Callable,
                  env_irradiance_fn: Optional[Callable] = None,
                  env_prefiltered_fn: Optional[Callable] = None,
-                 device=None, tracer_method: str = "auto"):
+                 device=None, tracer_method: str = "auto",
+                 animator: Optional[Callable] = None):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("HybridRenderer runs on the GPU unless asked otherwise, and "
@@ -85,6 +95,8 @@ class HybridRenderer:
         self.env_irradiance_fn = env_irradiance_fn
         self.env_prefiltered_fn = env_prefiltered_fn
         self.tracer_method = tracer_method
+        self.animator = animator
+        self._last_pose = (None, None)  # (frame index, its transforms on the device)
         # the BVH (TraceScene), or the FlashScene for "flash_dense"
         self.trace_scene = bvh_mod.make_accel(self.scene, tracer_method)
         self.closest_fn, self.visibility_fn = bvh_mod.make_tracers(
@@ -127,6 +139,36 @@ class HybridRenderer:
         )
 
     # ------------------------------------------------------------------
+    def _pose(self, frame_index: int) -> torch.Tensor:
+        """``animator(frame_index)`` on the renderer's device. A tensor on
+        the host goes through pinned memory, so the copy does not wait for
+        the device."""
+        m = self.animator(frame_index).to(torch.float32)
+        if self.device.type == "cuda" and m.device.type == "cpu":
+            return m.pin_memory().to(self.device, non_blocking=True)
+        return m.to(self.device)
+
+    def posed_tracers(self, frame_index: int):
+        """(closest_surface_fn, visibility_fn, motion deltas or None) for a
+        frame: the scene's own tracers, or with an animator the tracers of
+        the soup re-posed by ``animator(frame_index)`` over the refitted
+        trace structures, and the deltas to ``animator(max(frame_index - 1,
+        0))``. The animator must be a function of the frame index alone:
+        the last frame's transforms are kept on the device and serve as the
+        next frame's previous pose, so frames in order call it once each."""
+        if self.animator is None:
+            return self.closest_surface_fn, self.visibility_fn, None
+        prev = max(frame_index - 1, 0)
+        kept_index, kept = self._last_pose
+        m_prev = kept if kept_index == prev else self._pose(prev)
+        m_cur = m_prev if frame_index == prev else self._pose(frame_index)
+        self._last_pose = (frame_index, m_cur)
+        scene = dynamic.refit_scene(self.scene, m_cur)
+        accel = bvh_mod.refit_accel(self.trace_scene, scene, self.tracer_method)
+        _, visibility_fn = bvh_mod.make_tracers(scene, accel, self.tracer_method)
+        closest_surface_fn = bvh_mod.make_surface_tracer(scene, accel, self.tracer_method)
+        return closest_surface_fn, visibility_fn, dynamic.motion_deltas(m_cur, m_prev)
+
     def render_frame(self, state: RenderState, camera: Camera, light: Light):
         """One frame. Returns (outputs dict, state); `state` is the same
         object, updated in place."""
@@ -134,9 +176,10 @@ class HybridRenderer:
         W, H = cfg.width, cfg.height
         debug = cfg.debug_outputs
         outputs: Dict[str, torch.Tensor] = {}
+        closest_surface_fn, visibility_fn, deltas = self.posed_tracers(state.frame_index)
 
         # --- G-buffer (main.cpp:79) ---
-        gb = gbuffer_mod.render_gbuffer(self.closest_surface_fn, camera, W, H)
+        gb = gbuffer_mod.render_gbuffer(closest_surface_fn, camera, W, H, motion_deltas=deltas)
         if debug:
             outputs["gbuffer_albedo"] = gb.albedo
             outputs["gbuffer_normal"] = gb.normal
@@ -162,14 +205,14 @@ class HybridRenderer:
             gb_a = mip(gb_mips, cfg.ao.scale)
             s_rays = shadows_mod.make_rays(gb_s, light, state.frame_index, cfg.shadows)
             a_rays = ao_mod.make_rays(gb_a, state.frame_index, cfg.ao)
-            vis_s, vis_a = self.visibility_fn.many([s_rays[:3], a_rays])
+            vis_s, vis_a = visibility_fn.many([s_rays[:3], a_rays])
             shadow_raw = shadows_mod.finish_rays(vis_s, gb_s, s_rays[3])
             ao_raw = ao_mod.finish_rays(vis_a, gb_a)
 
         shadow_vis = None
         if cfg.shadows.enabled:
             sh_out, state.shadows = shadows_mod.shadows_pass(
-                self.visibility_fn, mip(gb_mips, cfg.shadows.scale),
+                visibility_fn, mip(gb_mips, cfg.shadows.scale),
                 mip(prev_mips, cfg.shadows.scale), gb, light, state.shadows,
                 state.frame_index, cfg.shadows, raw=shadow_raw)
             shadow_vis = sh_out.final
@@ -182,7 +225,7 @@ class HybridRenderer:
         ao_plane = None
         if cfg.ao.enabled:
             ao_out, state.ao = ao_mod.ao_pass(
-                self.visibility_fn, mip(gb_mips, cfg.ao.scale),
+                visibility_fn, mip(gb_mips, cfg.ao.scale),
                 mip(prev_mips, cfg.ao.scale), gb, state.ao, state.frame_index,
                 cfg.ao, raw=ao_raw)
             ao_plane = ao_out.final
@@ -198,7 +241,7 @@ class HybridRenderer:
         gi_sample_fn = None
         if cfg.ddgi.enabled:
             state.ddgi = ddgi_mod.ddgi_update(
-                self.closest_surface_fn, self.visibility_fn, self.probe_grid, state.ddgi,
+                closest_surface_fn, visibility_fn, self.probe_grid, state.ddgi,
                 light, self.sky_radiance_fn, state.frame_index, cfg.ddgi, self.gi_sampler)
 
             def gi_sample_fn(p, n, wo, valid=None, _st=state.ddgi):
@@ -219,7 +262,7 @@ class HybridRenderer:
         if cfg.reflections.enabled:
             camera_delta = torch.linalg.norm(camera.position - state.prev_cam_pos)
             refl_out, state.reflections = reflections_mod.reflections_pass(
-                self.closest_surface_fn, self.visibility_fn,
+                closest_surface_fn, visibility_fn,
                 mip(gb_mips, cfg.reflections.scale), mip(prev_mips, cfg.reflections.scale),
                 gb, camera, camera_delta, light, self.sky_radiance_fn, state.reflections,
                 state.frame_index, cfg.reflections, gi_sample_fn=gi_sample_fn,

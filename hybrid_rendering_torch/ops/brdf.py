@@ -128,6 +128,11 @@ def f0_from_metallic(albedo, metallic):
     return 0.04 * (1.0 - metallic[..., None]) + albedo * metallic[..., None]
 
 
+def diffuse_from_metallic(albedo, metallic):
+    """Metalness-workflow diffuse colour: albedo * (1 - metallic)."""
+    return albedo * (1.0 - metallic[..., None])
+
+
 def fresnel_schlick_roughness(cos_theta, f0, roughness):
     """deferred.frag:145-148. cos_theta/roughness (...,), f0 (...,3)."""
     fr = (1.0 - roughness)[..., None].expand(f0.shape)

@@ -16,6 +16,10 @@ Two versions of each trace live here:
     tree; K2, whose answer does not depend on the order of the walk, walks
     the same tree collapsed to 4 children a node (``pack_wide_nodes``).
 
+``refit_trace_scene`` keeps the tree's topology and recomputes, on the
+scene's device, every box and packed record K1/K2 read after the soup
+moved (dynamic scenes; ``refit_accel`` picks the refit of each method).
+
 ``make_tracers`` / ``make_surface_tracer`` bind them (or, by the JAX
 package's method names, the dense kernels K6/K6′ of ops/flashtrace.py or
 the brute oracle of ops/intersect.py) to a scene with the JAX package's
@@ -115,6 +119,21 @@ def build_bvh(tri_pos: np.ndarray, leaf_size: int = LEAF_SIZE):
 
 
 @dataclasses.dataclass
+class RefitPlan:
+    """What a refit reads besides the moved triangles, built once with the
+    tree: each leaf's triangles, the inner nodes level by level (deepest
+    first) with their two children, and the binary node behind each slot
+    of K2's 4-wide nodes."""
+
+    leaf_nodes: torch.Tensor  # (L,) int64
+    leaf_tris: torch.Tensor  # (L, K) int64 triangle of a slot (the leaf's first if unused)
+    leaf_used: torch.Tensor  # (L, K, 1) bool: slot k < the leaf's count
+    levels: list  # [(nodes, left, right)] int64 tensors, deepest level first
+    wide_src: torch.Tensor  # (M, WIDE) int64 binary node of a slot (0 if unused)
+    wide_used: torch.Tensor  # (M, WIDE, 1) bool
+
+
+@dataclasses.dataclass
 class TraceScene:
     """What K1/K2 and the plain walk read: the BVH, the leaf-ordered
     triangles and the (T, 24) attribute table; and, for the kernels, the
@@ -130,6 +149,7 @@ class TraceScene:
     nodes_packed: torch.Tensor  # (N,8) i32: two 16-byte records a node
     tris_packed: torch.Tensor  # (T,12) f32: three 16-byte records a triangle
     wide_packed: torch.Tensor  # (M,28) i32: seven 16-byte records a 4-wide node (K2)
+    plan: RefitPlan  # the tree's topology, for refit_trace_scene
 
 
 def attr_table(scene: SceneArrays) -> torch.Tensor:
@@ -173,7 +193,7 @@ def pack_tris(tri_pos) -> torch.Tensor:
                      dim=1).contiguous()
 
 
-def pack_wide_nodes(nodes_min, nodes_max, nodes_meta) -> torch.Tensor:
+def pack_wide_nodes(nodes_min, nodes_max, nodes_meta):
     """The binary BVH collapsed to up to WIDE children a node, for K2:
     (M, 28) int32, seven 16-byte records a node: the bits of the children's
     min.x, min.y, min.z, max.x, max.y, max.z (one record each, a lane a
@@ -189,13 +209,17 @@ def pack_wide_nodes(nodes_min, nodes_max, nodes_meta) -> torch.Tensor:
     leaf's box and all boxes above it are hit, and a box lies inside its
     parent's) is the same function on either tree. Node 0 is the root,
     nodes are in depth-first order. Raises if a walk could need more than
-    WIDE_STACK stack entries."""
+    WIDE_STACK stack entries. Returns (packed, sources): sources (M, WIDE)
+    int64 on the CPU is the binary node whose box fills each slot, -1 for
+    an unused slot, so that a refit regathers the boxes without this host
+    loop."""
     lo = nodes_min.detach().cpu().numpy()
     hi = nodes_max.detach().cpu().numpy()
     meta = nodes_meta.detach().cpu().numpy().astype(np.int64)
     N = meta.shape[0]
     if N == 0:
-        return torch.zeros((0, 7 * WIDE), dtype=torch.int32, device=nodes_min.device)
+        return (torch.zeros((0, 7 * WIDE), dtype=torch.int32, device=nodes_min.device),
+                torch.zeros((0, WIDE), dtype=torch.int64))
     if meta[:, 1].max() > 7 or meta[:, 0].max() >= 1 << 28:
         raise ValueError("pack_wide_nodes: a leaf holds more than 7 triangles or starts past 2^28")
     ext = np.maximum(hi - lo, 0.0).astype(np.float64)
@@ -228,12 +252,14 @@ def pack_wide_nodes(nodes_min, nodes_max, nodes_meta) -> torch.Tensor:
     M = len(groups)
     boxes = np.zeros((M, 6, WIDE), np.float32)
     words = np.full((M, WIDE), WIDE_EMPTY, np.int64)
+    sources = np.full((M, WIDE), -1, np.int64)
     need = np.zeros(M, np.int64)  # stack entries a walk below this node can hold
     for w in range(M - 1, -1, -1):  # children come after their parent
         below = 1  # a leaf child is tested from the stack too
         for slot, k in enumerate(groups[w]):
             boxes[w, 0:3, slot] = lo[k]
             boxes[w, 3:6, slot] = hi[k]
+            sources[w, slot] = k
             if is_leaf[k]:
                 words[w, slot] = ~(meta[k, 0] * 8 + meta[k, 1])
             else:
@@ -246,7 +272,38 @@ def pack_wide_nodes(nodes_min, nodes_max, nodes_meta) -> torch.Tensor:
                          f"more than {WIDE_STACK}")
     packed = np.concatenate([boxes.reshape(M, 6 * WIDE).view(np.int32),
                              words.astype(np.int32)], axis=1)
-    return torch.from_numpy(np.ascontiguousarray(packed)).to(nodes_min.device)
+    return (torch.from_numpy(np.ascontiguousarray(packed)).to(nodes_min.device),
+            torch.from_numpy(sources))
+
+
+def refit_plan(nodes_meta, wide_sources, device) -> RefitPlan:
+    """The refit's index tables for a tree (host numpy, once): leaves and
+    their triangle slots; inner nodes grouped by depth, children i + 1
+    and meta[i + 1, 2]; the wide slots' binary nodes."""
+    meta = nodes_meta.detach().cpu().numpy().astype(np.int64)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    inner = meta[:, 1] == 0
+    leaves = np.nonzero(~inner)[0]
+    count = meta[leaves, 1]
+    K = int(count.max()) if leaves.size else 1
+    first = meta[leaves, 0][:, None]
+    slots = np.arange(K)
+    used = slots[None, :] < count[:, None]
+    tris = np.where(used, first + slots, first)  # an unused slot reads the first
+    levels = []
+    frontier = np.zeros(min(meta.shape[0], 1), np.int64)  # the root
+    while (nodes := frontier[inner[frontier]]).size:
+        left = nodes + 1
+        right = meta[left, 2]
+        levels.append((t(nodes), t(left), t(right)))
+        frontier = np.concatenate([left, right])
+    src = wide_sources.cpu().numpy()
+    return RefitPlan(leaf_nodes=t(leaves), leaf_tris=t(tris), leaf_used=t(used[..., None]),
+                     levels=levels[::-1], wide_src=t(np.maximum(src, 0)),
+                     wide_used=t((src >= 0)[..., None]))
 
 
 def make_trace_scene(scene: SceneArrays) -> TraceScene:
@@ -256,13 +313,48 @@ def make_trace_scene(scene: SceneArrays) -> TraceScene:
     nodes_max = scene.bvh_nodes_max.contiguous()
     nodes_meta = scene.bvh_nodes_meta.to(torch.int32).contiguous()
     tri_pos = scene.tri_pos.contiguous()
+    wide_packed, sources = pack_wide_nodes(nodes_min, nodes_max, nodes_meta)
     return TraceScene(
         nodes_min=nodes_min, nodes_max=nodes_max, nodes_meta=nodes_meta,
         tri_pos=tri_pos, attrs=attr_table(scene),
         nodes_packed=pack_nodes(nodes_min, nodes_max, nodes_meta),
-        tris_packed=pack_tris(tri_pos),
-        wide_packed=pack_wide_nodes(nodes_min, nodes_max, nodes_meta),
+        tris_packed=pack_tris(tri_pos), wide_packed=wide_packed,
+        plan=refit_plan(nodes_meta, sources, tri_pos.device),
     )
+
+
+def refit_trace_scene(ts: TraceScene, scene: SceneArrays) -> TraceScene:
+    """`ts`'s tree over the moved soup of `scene` (same triangle order):
+    the binary boxes bottom-up, leaves from their triangles and each inner
+    node the union of its two children, level by level; then
+    ``nodes_packed``, ``tris_packed``, the attribute table and K2's
+    ``wide_packed`` boxes regathered through the plan. Plain PyTorch ops
+    on the scene's device, no host loop and no read-back. Closest hit and
+    any-hit do not depend on the tree, so the result is exact however
+    loose the moved tree gets; only the walk's speed does."""
+    plan = ts.plan
+    tri_pos = scene.tri_pos.contiguous()
+    # a box as [lo, -hi]: one minimum joins both halves
+    tri_box = torch.cat([tri_pos.amin(dim=1), -tri_pos.amax(dim=1)], dim=1)
+    leaf = torch.where(plan.leaf_used, tri_box[plan.leaf_tris], torch.inf).amin(dim=1)
+    box = torch.empty((ts.nodes_min.shape[0], 6), dtype=tri_pos.dtype, device=tri_pos.device)
+    box[plan.leaf_nodes] = leaf
+    for nodes, left, right in plan.levels:
+        box[nodes] = torch.minimum(box[left], box[right])
+    nodes_min = box[:, :3].contiguous()
+    nodes_max = (-box[:, 3:]).contiguous()
+    M = ts.wide_packed.shape[0]
+    wide = torch.where(plan.wide_used, torch.cat([nodes_min, nodes_max], dim=1)[plan.wide_src],
+                       0.0)  # (M, WIDE, 6)
+    wide_boxes = wide.transpose(1, 2).reshape(M, 6 * WIDE).contiguous()
+    return dataclasses.replace(
+        ts, nodes_min=nodes_min, nodes_max=nodes_max, tri_pos=tri_pos, attrs=attr_table(scene),
+        nodes_packed=torch.cat([nodes_min.view(torch.int32), ts.nodes_packed[:, 3:4],
+                                nodes_max.view(torch.int32), ts.nodes_packed[:, 7:8]],
+                               dim=1).contiguous(),
+        tris_packed=pack_tris(tri_pos),
+        wide_packed=torch.cat([wide_boxes.view(torch.int32), ts.wide_packed[:, 6 * WIDE:]],
+                              dim=1).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -559,6 +651,16 @@ def make_accel(scene: SceneArrays, method: str = "auto"):
     if method == "brute":
         return None
     return make_trace_scene(scene)
+
+
+def refit_accel(accel, scene: SceneArrays, method: str = "auto"):
+    """``make_accel(scene, method)`` for a scene whose soup moved (same
+    triangles, same order) from the one `accel` was built for: a
+    TraceScene is refitted (``refit_trace_scene``), anything else made
+    anew from the moved soup."""
+    if isinstance(accel, TraceScene):
+        return refit_trace_scene(accel, scene)
+    return make_accel(scene, method)
 
 
 def make_tracers(scene: SceneArrays, ts=None, method: str = "auto"):

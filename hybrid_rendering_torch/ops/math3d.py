@@ -2,6 +2,8 @@
 library). A "vec3" is an (..., 3) tensor."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 Tensor = torch.Tensor
@@ -74,6 +76,50 @@ def transform_h(m: Tensor, p: Tensor) -> Tensor:
     """(4,4) matrix times (..., 3) points with w = 1; returns (..., 4)."""
     ph = torch.cat([p, torch.ones_like(p[..., :1])], dim=-1)
     return torch.einsum("ij,...j->...i", m, ph)
+
+
+def transform_point(m: Tensor, p: Tensor) -> Tensor:
+    """(4,4) matrix times (..., 3) points with the perspective divide."""
+    out = transform_h(m, p)
+    return out[..., :3] / out[..., 3:4]
+
+
+def transform_point_noperspective(m: Tensor, p: Tensor) -> Tensor:
+    return transform_h(m, p)[..., :3]
+
+
+def transform_dir(m: Tensor, d: Tensor) -> Tensor:
+    """The 3x3 part of a (4,4) matrix times (..., 3) directions."""
+    return torch.einsum("ij,...j->...i", m[:3, :3], d)
+
+
+def world_position_from_depth(tex_coords: Tensor, ndc_depth: Tensor,
+                              view_proj_inverse: Tensor) -> Tensor:
+    """Depth -> world position (reference common.glsl:169-184).
+    tex_coords (..., 2) in [0, 1] with v = 0 at the top row, ndc_depth
+    (...,) in [0, 1]; ndc y = +1 at the top row, hence the v flip."""
+    screen = torch.stack([tex_coords[..., 0] * 2.0 - 1.0, 1.0 - tex_coords[..., 1] * 2.0], -1)
+    ndc = torch.cat([screen, ndc_depth[..., None], torch.ones_like(ndc_depth)[..., None]], -1)
+    world = torch.einsum("ij,...j->...i", view_proj_inverse, ndc)
+    return world[..., :3] / world[..., 3:4]
+
+
+def linear_eye_depth(z: Tensor, z_buffer_params) -> Tensor:
+    """NDC depth -> linear eye depth (reference common.glsl:188-191);
+    z_buffer_params as ``Camera.z_buffer_params`` gives them."""
+    return 1.0 / (z_buffer_params[2] * z + z_buffer_params[3])
+
+
+def take_rows(table: Tensor, idx: Tensor) -> Tensor:
+    """``table[idx]`` for a (R, ...) table and integer indices of any shape,
+    as one ``torch.take`` of flat element indices. Use it for rows of 16
+    or 64 bytes (a float32 4-vector, a 4x4 matrix), which PyTorch's own row
+    gather moves several times slower on the card; for 24-byte rows it is
+    the slower of the two (``chip_smoke.py textured_phase`` times both at
+    each width)."""
+    row = math.prod(table.shape[1:])
+    flat = idx.to(torch.int64)[..., None] * row + torch.arange(row, device=table.device)
+    return torch.take(table, flat).reshape(*idx.shape, *table.shape[1:])
 
 
 def smoothstep(edge0, edge1, x: Tensor) -> Tensor:

@@ -1,10 +1,10 @@
-"""Scene builder: instanced meshes + materials -> flat arrays.
+"""Scene builder: instanced meshes + materials + textures -> flat arrays.
 
-Port of ``hybrid_rendering_tpu/scene/build.py`` for untextured scenes: the
-scene compiles once on the host (numpy) to a world-space triangle soup with
-per-triangle material / mesh-id arrays and a BVH, permuted into BVH leaf
-order so ``tri_id`` means the same triangle in every tracer. The result
-lives on the CPU; ``SceneArrays.to(device)`` moves it to the card.
+Port of ``hybrid_rendering_tpu/scene/build.py``: the scene compiles once on
+the host (numpy) to a world-space triangle soup with per-triangle material /
+mesh-id arrays, a BVH and a texture atlas, permuted into BVH leaf order so
+``tri_id`` means the same triangle in every tracer. The result lives on the
+CPU; ``SceneArrays.to(device)`` moves it to the card.
 """
 from __future__ import annotations
 
@@ -15,14 +15,17 @@ import numpy as np
 import torch
 
 from hybrid_rendering_torch.scene.primitives import Mesh
+from hybrid_rendering_torch.scene.textures import AtlasBuilder
 from hybrid_rendering_torch.types import Material, SceneArrays
 
 
 @dataclasses.dataclass
 class MaterialDef:
-    """Material row (reference scene_descriptor_set.glsl:20-24). The
-    texture fields exist for parity with the JAX package; any texture
-    index >= 0 is refused until the texture atlas is ported."""
+    """Material row mirroring the reference's material SSBO with its map
+    indices and roughness/metallic channel selectors
+    (scene_descriptor_set.glsl:20-24, 180-228). A texture index is an
+    ``add_texture`` result, -1 for none; the albedo and emissive maps
+    multiply their factors (glTF semantics)."""
 
     albedo: Tuple[float, float, float] = (0.8, 0.8, 0.8)
     roughness: float = 0.5
@@ -35,10 +38,6 @@ class MaterialDef:
     emissive_tex: int = -1
     roughness_channel: int = 1
     metallic_channel: int = 2
-
-
-_TEX_FIELDS = ("albedo_tex", "normal_tex", "roughness_tex", "metallic_tex",
-               "emissive_tex")
 
 
 def _triangle_tangents(tp: np.ndarray, tuv: np.ndarray) -> np.ndarray:
@@ -99,16 +98,14 @@ class SceneBuilder:
         self._tri_mesh: List[np.ndarray] = []
         self._materials: List[MaterialDef] = []
         self._next_mesh_id = 0
+        self._atlas = AtlasBuilder()
 
     def add_texture(self, img) -> int:
-        raise NotImplementedError(
-            "textures are not ported yet (texture atlas: a later slice)")
+        """Register a texture image; returns the index a MaterialDef's
+        ``*_tex`` field takes."""
+        return self._atlas.add(img)
 
     def add_material(self, mat: MaterialDef) -> int:
-        if any(getattr(mat, f) >= 0 for f in _TEX_FIELDS):
-            raise NotImplementedError(
-                "textured materials are not ported yet (texture atlas: a "
-                "later slice)")
         self._materials.append(mat)
         return len(self._materials) - 1
 
@@ -153,8 +150,15 @@ class SceneBuilder:
             return torch.as_tensor(np.asarray(
                 [getattr(m, name) for m in self._materials], np.float32))
 
+        def icol(name):
+            return torch.as_tensor(np.asarray(
+                [getattr(m, name) for m in self._materials], np.int32))
+
         mats = Material(albedo=col("albedo"), roughness=col("roughness"),
-                        metallic=col("metallic"), emissive=col("emissive"))
+                        metallic=col("metallic"), emissive=col("emissive"),
+                        **{name: icol(name) for name in (
+                            "albedo_tex", "normal_tex", "roughness_tex", "metallic_tex",
+                            "emissive_tex", "roughness_channel", "metallic_channel")})
 
         bvh_kw = {}
         if use_bvh:
@@ -184,5 +188,5 @@ class SceneBuilder:
         return SceneArrays(
             tri_pos=t(tri_pos), tri_normal=t(tri_nrm), tri_uv=t(tri_uv),
             tri_mat=t(tri_mat), tri_mesh_id=t(tri_mesh), materials=mats,
-            tri_tangent=t(tri_tan), **bvh_kw,
+            tri_tangent=t(tri_tan), atlas=self._atlas.build(), **bvh_kw,
         )

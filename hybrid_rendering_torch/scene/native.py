@@ -1,10 +1,11 @@
-"""ctypes binding of the native binned-SAH BVH builder
-(``native/hr_native.cpp``, shared with the JAX package).
+"""ctypes binding of the native toolkit (``native/hr_native.cpp``, shared
+with the JAX package): the binned-SAH BVH builder and the OBJ parser.
 
 g++ compiles the source at first use into the port's own ignored build
-directory; if that fails the caller falls back to the Python Morton
-builder (ops/bvh.py ``build_bvh``), in the same order as the JAX package's
-scene/build.py; ``builder_name()`` says which one a build used.
+directory; if that fails the callers fall back to Python, in the same
+order as the JAX package: the Morton builder (ops/bvh.py ``build_bvh``) for
+the BVH, ``scene/loader._load_obj_python`` for OBJ files.
+``builder_name()`` and ``obj_parser_name()`` say which one runs.
 """
 from __future__ import annotations
 
@@ -63,6 +64,14 @@ def get_lib():
         lib.hr_build_bvh.restype = ctypes.c_int32
         lib.hr_build_bvh.argtypes = [fp, ctypes.c_int32, ctypes.c_int32,
                                      fp, fp, ip, ip]
+        lib.hr_load_obj.restype = ctypes.c_void_p
+        lib.hr_load_obj.argtypes = [ctypes.c_char_p]
+        lib.hr_obj_counts.restype = None
+        lib.hr_obj_counts.argtypes = [ctypes.c_void_p, ip, ip]
+        lib.hr_obj_copy.restype = None
+        lib.hr_obj_copy.argtypes = [ctypes.c_void_p, fp, fp, fp, ip]
+        lib.hr_obj_free.restype = None
+        lib.hr_obj_free.argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -71,6 +80,12 @@ def builder_name() -> str:
     """The BVH builder that scene builds in this process use."""
     return ("native binned-SAH (native/hr_native.cpp)" if get_lib() is not None
             else "python Morton median split (ops/bvh.py)")
+
+
+def obj_parser_name() -> str:
+    """The OBJ parser that ``scene/loader.load_obj`` uses in this process."""
+    return ("native (native/hr_native.cpp)" if get_lib() is not None
+            else "python (scene/loader.py)")
 
 
 def build_bvh_native(tri_pos: np.ndarray, leaf_size: int = 4):
@@ -95,3 +110,31 @@ def build_bvh_native(tri_pos: np.ndarray, leaf_size: int = 4):
     if n <= 0:
         return None
     return out_min[:n], out_max[:n], out_meta[:n], out_order
+
+
+def load_obj_native(path: str):
+    """Parse an OBJ file with the native parser. Returns (positions (V,3),
+    normals (V,3), uvs (V,2), indices (F,3)) as numpy arrays, or None when
+    the library is unavailable or the file has no vertex or face."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    handle = lib.hr_load_obj(os.fsencode(path))
+    if not handle:
+        return None
+    try:
+        nv, nf = ctypes.c_int32(), ctypes.c_int32()
+        lib.hr_obj_counts(handle, ctypes.byref(nv), ctypes.byref(nf))
+        V, F = nv.value, nf.value
+        if V == 0 or F == 0:
+            return None
+        pos = np.empty((V, 3), np.float32)
+        nrm = np.empty((V, 3), np.float32)
+        uv = np.empty((V, 2), np.float32)
+        idx = np.empty((F, 3), np.int32)
+        fp = ctypes.POINTER(ctypes.c_float)
+        lib.hr_obj_copy(handle, pos.ctypes.data_as(fp), nrm.ctypes.data_as(fp),
+                        uv.ctypes.data_as(fp), idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        return pos, nrm, uv, idx
+    finally:
+        lib.hr_obj_free(handle)

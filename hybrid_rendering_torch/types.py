@@ -28,9 +28,12 @@ LIGHT_TYPE_SPOT = 2
 
 
 def _to(obj, device):
-    """Move every tensor field of a dataclass to `device` (new object)."""
+    """Move every tensor field of a dataclass to `device` (new object;
+    fields made by ``__post_init__`` are made anew)."""
     kw = {}
     for f in dataclasses.fields(obj):
+        if not f.init:
+            continue
         v = getattr(obj, f.name)
         if isinstance(v, torch.Tensor):
             v = v.to(device)
@@ -116,24 +119,58 @@ class Camera:
     jitter: tuple  # (2,) current subpixel jitter in NDC units
     prev_jitter: tuple
 
+    @property
+    def z_buffer_params(self) -> tuple:
+        """dw::Camera's z_buffer_params, which ``math3d.linear_eye_depth``
+        reads: (1 - f/n, f/n, (1 - f/n)/f, (f/n)/f) in float32."""
+        n, f = np.float32(self.near), np.float32(self.far)
+        return tuple(float(v) for v in (1.0 - f / n, f / n, (1.0 - f / n) / f, (f / n) / f))
+
     def to(self, device) -> "Camera":
         return _to(self, device)
 
 
+MAP_COLUMNS = ("albedo_tex", "normal_tex", "roughness_tex", "metallic_tex", "emissive_tex")
+
+
 @dataclasses.dataclass
 class Material:
-    """Flat material table (untextured: constants only)."""
+    """Flat material table with the reference's five per-map texture
+    indices (-1 = no map, the constant is used) and the roughness/metallic
+    channel selectors (scene_descriptor_set.glsl:20-24, 180-228).
+
+    `maps` names the texture columns that some material uses. It is read
+    from the columns whenever a table is made (``.to`` and
+    ``dataclasses.replace`` included), never in a surface fetch, so no
+    fetch reads a device value back to decide which maps to sample."""
 
     albedo: Tensor  # (M,3)
     roughness: Tensor  # (M,)
     metallic: Tensor  # (M,)
     emissive: Tensor  # (M,3)
+    albedo_tex: Optional[Tensor] = None  # (M,) int32 atlas texture index
+    normal_tex: Optional[Tensor] = None  # (M,) int32 tangent-space normal map
+    roughness_tex: Optional[Tensor] = None  # (M,) int32
+    metallic_tex: Optional[Tensor] = None  # (M,) int32
+    emissive_tex: Optional[Tensor] = None  # (M,) int32
+    roughness_channel: Optional[Tensor] = None  # (M,) int32 texel channel
+    metallic_channel: Optional[Tensor] = None  # (M,) int32
+    maps: frozenset = dataclasses.field(init=False)  # the columns of MAP_COLUMNS in use
+
+    def __post_init__(self):
+        self.maps = frozenset(
+            name for name in MAP_COLUMNS
+            if getattr(self, name) is not None and bool((getattr(self, name) >= 0).any()))
+
+    def to(self, device) -> "Material":
+        return _to(self, device)
 
 
 @dataclasses.dataclass
 class SceneArrays:
     """The whole scene compiled to flat arrays: world-space triangle soup
-    in BVH leaf order plus the preorder skip-link BVH."""
+    in BVH leaf order plus the preorder skip-link BVH, and the texture
+    atlas the materials' maps index."""
 
     tri_pos: Tensor  # (T,3,3)
     tri_normal: Tensor  # (T,3,3) per-vertex shading normals
@@ -142,6 +179,7 @@ class SceneArrays:
     tri_mesh_id: Tensor  # (T,) int32
     materials: Material
     tri_tangent: Tensor  # (T,4) [tangent.xyz, bitangent sign]
+    atlas: Optional["TextureAtlas"] = None  # scene/textures.py; None when untextured
     bvh_nodes_min: Optional[Tensor] = None  # (N,3)
     bvh_nodes_max: Optional[Tensor] = None  # (N,3)
     bvh_nodes_meta: Optional[Tensor] = None  # (N,3) int32 [first, count, skip]

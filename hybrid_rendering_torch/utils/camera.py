@@ -110,6 +110,13 @@ def pixel_grid(height: int, width: int, device=None):
     )
 
 
+def pixel_uv(width: int, height: int, device=None):
+    """(H, W, 2) texel-centre UVs in [0, 1] (v = 0 at the top row, as
+    images are laid out)."""
+    y, x = pixel_grid(height, width, device)
+    return torch.stack([(x + 0.5) / width, (y + 0.5) / height], -1)
+
+
 def camera_rays(camera: Camera, width: int, height: int, jitter_uv=None):
     """Primary rays through pixel centers: (origins, directions), each
     (H, W, 3). jitter_uv: optional (H,W,2) subpixel offsets in [0,1) added

@@ -99,11 +99,18 @@ def test_unknown_scene_raises_key_error():
 
 
 def test_textured_material_raises():
+    """Textured materials no longer raise: the texture and the material
+    that indexes it build into the scene's atlas and map columns."""
+    from hybrid_rendering_torch.scene import primitives as tprim
+
     b = tbuild.SceneBuilder()
-    with pytest.raises(NotImplementedError):
-        b.add_material(tbuild.MaterialDef(albedo_tex=0))
-    with pytest.raises(NotImplementedError):
-        b.add_texture(np.zeros((4, 4, 3), np.float32))
+    tex = b.add_texture(np.zeros((4, 4, 3), np.float32))
+    m = b.add_material(tbuild.MaterialDef(albedo_tex=tex))
+    b.add_instance(tprim.plane(1.0, 1.0), m)
+    scene = b.build(use_bvh=False)
+    assert scene.atlas is not None and scene.atlas.num_textures == 1
+    assert scene.materials.albedo_tex.tolist() == [tex]
+    assert scene.materials.maps == frozenset({"albedo_tex"})
 
 
 def test_scene_to_device_keeps_values():

@@ -422,9 +422,10 @@ def test_pack_wide_nodes_edge_trees():
     """A one-leaf tree becomes a root with that leaf as its only child; a
     tree too deep for the kernel's stack is refused."""
     lo, hi = torch.zeros((1, 3)), torch.ones((1, 3))
-    one = tbvh.pack_wide_nodes(lo, hi, torch.tensor([[0, 3, 1]], dtype=torch.int32))
+    one, src = tbvh.pack_wide_nodes(lo, hi, torch.tensor([[0, 3, 1]], dtype=torch.int32))
     assert tuple(one.shape) == (1, 7 * tbvh.WIDE)
     assert one[0, 24:].tolist() == [~3, tbvh.WIDE_EMPTY, tbvh.WIDE_EMPTY, tbvh.WIDE_EMPTY]
+    assert src.tolist() == [[0, -1, -1, -1]]
     # a comb: every right child is a leaf, so a wide node keeps one inner
     # child and three leaves, and a walk can hold three entries a level.
     # Preorder: the spine inner_0..inner_{D-1}, its last left leaf, then
