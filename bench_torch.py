@@ -87,10 +87,10 @@ def _error(e: BaseException) -> str:
 
 
 def _build(scene_name, W, H, *, device, taa=True, debug=False, tracer_method="auto",
-           animator=None):
+           animator=None, mesh=None):
     """The renderer as bench.py _build makes it: shadows FULL, AO HALF,
     reflections HALF, DDGI at the scene preset's rays and scale, TAA on
-    unless `taa` is False. `tracer_method` and `animator` go to
+    unless `taa` is False. `tracer_method`, `animator` and `mesh` go to
     HybridRenderer."""
     from hybrid_rendering_torch.config import (
         AOConfig, DDGIConfig, RayTraceScale, ReflectionsConfig, RendererConfig,
@@ -112,7 +112,7 @@ def _build(scene_name, W, H, *, device, taa=True, debug=False, tracer_method="au
     sky = ProceduralSky.create(light.direction.numpy()).to(device)
     irr_fn, pref_fn = make_env_fallbacks(sky.radiance, device=device)
     r = HybridRenderer(scene, cfg, sky.radiance, irr_fn, pref_fn, device=device,
-                       tracer_method=tracer_method, animator=animator)
+                       tracer_method=tracer_method, animator=animator, mesh=mesh)
     return r, light.to(device), camkw
 
 

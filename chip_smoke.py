@@ -10,6 +10,9 @@
                                             line)
     python3 chip_smoke.py --scenes-only    (textured_phase and dynamic_phase
                                             alone; no result line)
+    python3 chip_smoke.py --parallel-only  (parallel_phase alone: the
+                                            multi-device path on meshes that
+                                            repeat the card; no result line)
     python3 chip_smoke.py --profiler-effect  (K4 counted by short
                                             torch.profiler sessions before
                                             and after profiled runs; the
@@ -63,6 +66,13 @@ motion plane of a static camera, 256x144 card against CPU, the refit of
 the hero scene's tree, and the frame through ``"flash_dense"`` with K6/K6′
 counted); runs the bench's fidelity section (gi_test at 256x256: 32 hybrid frames against a
 96-spp path-traced GT) through both tracers; then the K6/K6′ checks; then
+the multi-device path (``parallel_phase``, meshes that repeat the card):
+K1/K2 and K6/K6′ sharded over 2 and 3 shards at every 1080p ray site, bit
+for bit against the unsharded calls and timed beside them; the bench frame
+with its tracers sharded over 2 shards bit for bit against the unsharded
+frame over 1 + 3 frames (launches a frame, ms/frame and synchronizing calls
+of both); the sharded GT step against the unsharded GT at 256x256; and
+``entry_torch.dryrun_multichip(8)``; then
 the apps (``apps_phase``): ``render_torch.py`` at 1920x1080, animated and
 env-lit with --profile and a checkpoint, alone on the card; then, in
 subprocesses beside the env-lit frame at 256x144 on the card against the
@@ -100,6 +110,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+from collections import Counter
 import json
 import os
 import subprocess
@@ -214,6 +225,15 @@ APPS_OUT = os.path.join(ROOT, "chiprun_out", "apps")
 TEXTURED_CAMERA = dict(eye=(6.5, 4.0, 7.5), target=(0.0, 0.8, 0.0))
 HERO_INSTANCE, HERO_CENTER = 13, (0.0, 1.8, 0.0)
 DYNAMIC_SAMPLE = 65_536
+# parallel_phase: the meshes of repeated cards its tracer sites are sharded
+# over, the shards of its bench frame and GT step, the frames after the
+# first of its bench-frame comparison, the size of its GT step and the
+# shards of its dryrun
+PARALLEL_SHARDS = (2, 3)
+PARALLEL_FRAME_SHARDS = 2
+PARALLEL_FRAMES = 3
+PARALLEL_GT, PARALLEL_GT_SHARDS = 256, (2, 4)
+PARALLEL_DRYRUN = 8
 # the frames of profile_phase's per-pass run and of each of its
 # torch.profiler sessions
 PROFILE_FRAMES = 3
@@ -343,7 +363,9 @@ def wavefronts(r, state, cam, light):
     the DDGI update, the screen sample and the reflections' ray trace: the
     probe and reflection rays (K1), the probe sun and sky rays and the
     reflection-hit shadow rays (K2), the three sampler calls (K5); and the
-    reflections' temporal plane with its denoise mask (K3, C=3)."""
+    reflections' temporal plane with its denoise mask (K3, C=3). `calls`
+    holds the tracer calls of the K1 and K2 sites as the renderer makes
+    them (the shadow + AO site: the two requests of its ``.many``)."""
     from hybrid_rendering_torch.models import (
         ao, ddgi, deferred, gbuffer, reflections, shadows)
     from hybrid_rendering_torch.ops import bvh
@@ -353,7 +375,8 @@ def wavefronts(r, state, cam, light):
     cfg = r.config
     origins, dirs = camera_rays(cam, W, H)
     primary = bvh._linearize_req(origins, dirs, INF_T)[0]
-    gb = gbuffer.render_gbuffer(r.closest_surface_fn, cam, W, H)
+    gb_surf = recorder(r.closest_surface_fn)
+    gb = gbuffer.render_gbuffer(gb_surf, cam, W, H)
     gb_a = gbuffer.downsample_gbuffer(gb, 1)
     s_rays = shadows.make_rays(gb, light, state.frame_index, cfg.shadows)
     a_rays = ao.make_rays(gb_a, state.frame_index, cfg.ao)
@@ -406,6 +429,12 @@ def wavefronts(r, state, cam, light):
         return dict(state=st, p=a[0], n=a[1], wo=a[2], valid=kw["valid"])
 
     return dict(
+        # the tracer calls as the renderer makes them (images unlinearized)
+        calls={"K1": {"primary": gb_surf.calls[0][0], "probe": probe_surf.calls[0][0],
+                      "reflection": refl_surf.calls[0][0]},
+               "K2": {"shadow + AO": [s_rays[:3], a_rays], "probe sun": probe_vis.calls[0][0],
+                      "probe sky": probe_vis.calls[1][0],
+                      "reflection-hit shadow": refl_vis.calls[0][0]}},
         primary=primary, vis_rays=vis_rays, gb=gb, gb_a=gb_a, vis=vis, var=var,
         hdr=hdr.contiguous(), ao=ao_t,
         k1_more={"probe": rays(probe_surf.calls[0]), "reflection": rays(refl_surf.calls[0])},
@@ -1862,6 +1891,185 @@ def dynamic_phase(dev, counters, hero=None):
     return ms, one
 
 
+# ---------------------------------------------------------------------------
+# multi-device: the tracers sharded over meshes that repeat the card
+# ---------------------------------------------------------------------------
+
+
+def same_bits(got, ref):
+    """Equal bit for bit: tensors (NaN included), Hit and Surface fields,
+    tuples and lists of those."""
+    if isinstance(ref, torch.Tensor):
+        return bits_equal(got, ref)
+    if isinstance(ref, (tuple, list)):
+        return len(got) == len(ref) and all(same_bits(g, r) for g, r in zip(got, ref))
+    return all(same_bits(getattr(got, f.name), getattr(ref, f.name))
+               for f in dataclasses.fields(ref))
+
+
+def site_call(fn, args, many):
+    """A call of tracer `fn` at a site: ``fn.many(args)`` or ``fn(*args)``."""
+    return (lambda: fn.many(args)) if many else (lambda: fn(*args))
+
+
+def sharded_sites(r, wf, counters, kernels):
+    """Every K1/K2 site of `wf` (the renderer's own calls, ``wavefronts``
+    ``calls``) through `r`'s tracers and through the same tracers sharded
+    over meshes of PARALLEL_SHARDS repeated cards: bit for bit, each
+    sharded call launching its kernel once a shard; ms of each (CUDA
+    events, 5 calls after a warm-up). `kernels`: the counters of the
+    closest-hit and any-hit sites ("K1", "K2" or "K6", "K6′")."""
+    from hybrid_rendering_torch.parallel import mesh as mesh_mod
+    from hybrid_rendering_torch.parallel import trace as ptrace
+
+    dev, method = r.device, r.tracer_method
+    for n in PARALLEL_SHARDS:
+        mesh = mesh_mod.make_mesh(devices=[dev] * n)
+        _, s_vis, s_surf = ptrace.shard_renderer_tracers(
+            mesh, r.closest_fn, r.visibility_fn, r.closest_surface_fn,
+            ptrace.replicate(mesh, r.scene, r.trace_scene), method)
+        sites = [(kernels[0], name, r.closest_surface_fn, s_surf, args)
+                 for name, args in wf["calls"]["K1"].items()]
+        sites += [(kernels[1], name, r.visibility_fn, s_vis, args)
+                  for name, args in wf["calls"]["K2"].items()]
+        for kernel, name, fn, s_fn, args in sites:
+            many = name == "shadow + AO"
+            call, s_call = site_call(fn, args, many), site_call(s_fn, args, many)
+            ref = call()
+            zero_counts(counters)
+            got = s_call()
+            launched = read_counts(counters)[kernel]
+            shapes = [tuple(q[0].shape[:-1]) for q in (args if many else [args])]
+            rays = sum(int(np.prod(sh)) for sh in shapes)
+            split = ("rows split" if not many and len(shapes[0]) == 2 and shapes[0][0] % n == 0
+                     else f"flat, {(-rays) % n} rays of padding")
+            check(same_bits(got, ref),
+                  f"{kernel} {name} sharded over {n} shards differs from the unsharded call")
+            check(launched == n, f"{kernel} {name} over {n} shards: {launched} launches")
+            ms, s_ms = cuda_ms(call, 5), cuda_ms(s_call, 5)
+            print(f"[parallel] {kernel} {name} {shapes} ({rays} rays, {split}) over {n} x {dev}: "
+                  f"bit for bit; {s_ms:.3f} ms sharded against {ms:.3f} ms unsharded, "
+                  f"{launched} launches a call")
+
+
+def moving_frames(r, light, camkw, frames):
+    """1 + `frames` frames of a camera sliding along x: each frame's LDR
+    frame and its TAA-resolved HDR frame."""
+    state, prev, out = r.create_state(), None, []
+    for f in range(1 + frames):
+        eye = tuple(np.asarray(camkw["eye"]) + [EYE_STEP * f, 0.0, 0.0])
+        cam = r.make_camera(eye, camkw["target"], f, prev_view_proj=prev)
+        prev = cam.view_proj
+        o, state = r.render_frame(state, cam, light)
+        out.append((o["ldr"], state.taa.history))
+    return out
+
+
+def parallel_phase(dev, counters):
+    """The multi-device path on meshes that repeat the card: K1/K2 sharded
+    over 2 and 3 shards at every 1080p site of the bench frame, and K6/K6′
+    at the dense frame's, bit for bit against the unsharded calls, timed
+    beside them; the bench frame with its tracers sharded over 2 shards
+    (``HybridRenderer(mesh=)``), 1 + PARALLEL_FRAMES moving-camera frames
+    bit for bit against the unsharded frame on the LDR and HDR frames, with
+    the counters set to 0 just before each run and read just after, both
+    timed in turns (``bench_torch._time_frames``: unsharded, sharded,
+    sharded, unsharded), and the sharded frame making no
+    more synchronizing calls than the unsharded one; the sharded GT step
+    against the unsharded GT at 256x256; and ``entry_torch.dryrun_multichip
+    (8)`` on the card."""
+    import entry_torch
+    from hybrid_rendering_torch.config import PathTracerConfig
+    from hybrid_rendering_torch.models import path_tracer
+    from hybrid_rendering_torch.ops import bvh
+    from hybrid_rendering_torch.ops.sky import ProceduralSky
+    from hybrid_rendering_torch.parallel import mesh as mesh_mod
+    from hybrid_rendering_torch.parallel.render import path_trace_frame_sharded
+    from hybrid_rendering_torch.utils import camera as camera_utils
+
+    for method, kernels in (("auto", ("K1", "K2")), ("flash_dense", ("K6", "K6′"))):
+        r, light, camkw = bench_torch._build(SCENE, W, H, device=dev, tracer_method=method)
+        cam = r.make_camera(camkw["eye"], camkw["target"], 0)
+        wf = wavefronts(r, r.create_state(), cam, light)
+        sharded_sites(r, wf, counters, kernels)
+        del wf, r
+
+    # the bench frame, its tracers sharded over PARALLEL_FRAME_SHARDS shards
+    n = PARALLEL_FRAME_SHARDS
+    mesh = mesh_mod.make_mesh(devices=[dev] * n)
+    runs, launches, waits = {}, {}, {}
+    ms = {"unsharded": [], "sharded": []}
+    r, light, camkw = bench_torch._build(SCENE, W, H, device=dev)
+    rs, _, _ = bench_torch._build(SCENE, W, H, device=dev, mesh=mesh)
+    for label, rr in (("unsharded", r), ("sharded", rs)):
+        zero_counts(counters)
+        runs[label] = moving_frames(rr, light, camkw, PARALLEL_FRAMES)
+        launches[label] = {k: v / (1 + PARALLEL_FRAMES) for k, v in read_counts(counters).items()}
+    # timed in turns, as the frame follows the host
+    for label, rr in (("unsharded", r), ("sharded", rs), ("sharded", rs), ("unsharded", r)):
+        t, _, out, state, cam, _ = bench_torch._time_frames(rr, light, camkw, TIMED_FRAMES,
+                                                            keep_state=True)
+        ms[label].append(t)
+        check_ldr(out["ldr"], f"{label} bench frame")
+        waits[label] = synchronizing_calls(lambda: rr.render_frame(state, cam, light))
+    for f, ((ldr, hdr), (ldr_ref, hdr_ref)) in enumerate(zip(runs["sharded"],
+                                                             runs["unsharded"])):
+        check(bits_equal(ldr, ldr_ref) and bits_equal(hdr, hdr_ref),
+              f"sharded bench frame {f}: LDR or HDR differs from the unsharded frame")
+    sh, un = launches["sharded"], launches["unsharded"]
+    for k in ("K1", "K2", "K3", "K4", "K5"):
+        check(sh[k] > 0, f"{k} was not launched on the sharded bench frame")
+    for k in ("K1", "K2"):
+        check(sh[k] == n * un[k], f"{k}: {sh[k]} launches a sharded frame, {un[k]} unsharded")
+    for k in ("K3", "K4", "K5", "K6", "K6′"):
+        check(sh[k] == un[k], f"{k}: {sh[k]} launches a sharded frame, {un[k]} unsharded")
+    print(f"[parallel] bench frame {W}x{H} over {n} x {dev} (HybridRenderer(mesh=)): LDR and HDR "
+          f"bit for bit over 1 + {PARALLEL_FRAMES} moving-camera frames; "
+          f"ms/frame over {TIMED_FRAMES} frames, timed in the order unsharded, sharded, sharded, "
+          f"unsharded: sharded {ms['sharded'][0]:.2f}, {ms['sharded'][1]:.2f}, unsharded "
+          f"{ms['unsharded'][0]:.2f}, {ms['unsharded'][1]:.2f}; launches a frame sharded {sh}, "
+          f"unsharded {un}; "
+          f"synchronizing calls in a frame: sharded {len(waits['sharded'])}, unsharded "
+          f"{len(waits['unsharded'])}; the sharded frame's beyond the unsharded's at "
+          f"{sorted((Counter(waits['sharded']) - Counter(waits['unsharded'])).items()) or 'none'}")
+    check(len(waits["sharded"]) <= len(waits["unsharded"]),
+          f"the sharded frame waits for the card {len(waits['sharded'])} times, the unsharded "
+          f"{len(waits['unsharded'])}")
+    del runs, rs
+
+    # the GT path tracer, a row block a shard, against the unsharded one
+    G = PARALLEL_GT
+    gcam = camera_utils.make_camera(camkw["eye"], camkw["target"], width=G, height=G,
+                                    device=dev)
+    sky = ProceduralSky.create(light.direction.cpu().numpy()).to(dev)
+    cfg = PathTracerConfig()
+    surf, vis = (bvh.make_surface_tracer(r.scene, method="bvh"),
+                 bvh.make_tracers(r.scene, method="bvh")[1])
+    ref, gt_ms = wall_ms(lambda: path_tracer.render_progressive(
+        r.scene, surf, vis, gcam, light, sky.radiance, G, G, 2, cfg))
+    for gn in PARALLEL_GT_SHARDS:
+        step = path_trace_frame_sharded(mesh_mod.make_mesh(devices=[dev] * gn), r.scene, gcam,
+                                        light, sky, G, G, cfg)
+        zero_counts(counters)
+
+        def two_steps():
+            st = path_tracer.GroundTruthState.create(G, G, dev)
+            return step(step(st))
+
+        got, s_ms = wall_ms(two_steps)
+        gl = read_counts(counters)
+        d = (got.color - ref.color).abs().max().item()
+        print(f"[parallel] GT {G}x{G}, 2 spp over {gn} x {dev}: max |d| {d:.3g} against the "
+              f"unsharded GT; {s_ms:.1f} ms sharded against {gt_ms:.1f} ms unsharded (host "
+              f"clock, 2 samples); launches {gl}")
+        check(int(got.num_frames) == 2 and bits_equal(got.color, ref.color),
+              f"the sharded GT over {gn} shards differs from the unsharded GT (max |d| {d})")
+        check(gl["K1"] > 0 and gl["K2"] > 0, "the sharded GT launched no K1 or K2")
+    del r
+
+    entry_torch.dryrun_multichip(PARALLEL_DRYRUN)
+
+
 def run_cli(label, argv, out):
     """render_torch.py in a subprocess with APPS_TIMEOUT_S: it must exit 0
     and write a non-constant PNG to `out`. Its lines are printed in one
@@ -2460,6 +2668,11 @@ def main() -> int:
         # on the apps; prints no result line
         apps_phase(dev, counters, card)
         return 0
+    if "--parallel-only" in sys.argv[1:]:
+        # parallel_phase alone: a short call for work on the multi-device
+        # path; prints no result line
+        parallel_phase(dev, counters)
+        return 0
     if "--scenes-only" in sys.argv[1:]:
         # textured_phase and dynamic_phase alone: a short call for work on
         # textures, loaders and dynamic scenes; prints no result line
@@ -2492,6 +2705,8 @@ def main() -> int:
     t = lap("fidelity_phase", t)
     timed.update(dense_phase(dev))
     t = lap("dense_phase", t)
+    parallel_phase(dev, counters)
+    t = lap("parallel_phase", t)
     apps_phase(dev, counters, card)
     t = lap("apps_phase", t)
     # torch.profiler from here on: a session slows every frame timed after

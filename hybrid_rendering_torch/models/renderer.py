@@ -17,6 +17,11 @@ Dynamic scenes: with an ``animator(frame_index) -> (I, 4, 4)`` the frame
 first re-poses the soup and refits the trace structures on the device
 (the reference's per-frame TLAS build, main.cpp:74), traces every pass
 against them and hands the G-buffer the instances' motion.
+
+Multi-device: with ``mesh=`` (``parallel.mesh.make_mesh``) the three
+tracers shard every ray batch over the mesh's devices, each against its
+device's copy of the scene (``parallel/trace.py``), as the JAX renderer's
+``mesh=`` does; the rest of the frame runs on the mesh's first device.
 """
 from __future__ import annotations
 
@@ -38,6 +43,8 @@ from hybrid_rendering_torch.models import (
 )
 from hybrid_rendering_torch.ops import bvh as bvh_mod
 from hybrid_rendering_torch.ops import ddgi_sample, filters
+from hybrid_rendering_torch.parallel import mesh as mesh_mod
+from hybrid_rendering_torch.parallel import trace as parallel_trace
 from hybrid_rendering_torch.scene import dynamic
 from hybrid_rendering_torch.types import Camera, GBuffer, Light, SceneArrays
 from hybrid_rendering_torch.utils import camera as camera_utils
@@ -74,14 +81,21 @@ class HybridRenderer:
     K1/K2) or "flash_dense" (K6/K6′) among others. `animator`, a host
     function of the Python frame index returning (I, 4, 4) rigid
     per-instance transforms (indexed by the scene's mesh ids), makes the
-    scene dynamic; the probe grid stays the one of the base scene."""
+    scene dynamic; the probe grid stays the one of the base scene. With
+    `mesh` (``parallel.mesh.Mesh``) the tracers shard their rays over its
+    devices and `device` is its first (another `device` is refused)."""
 
     def __init__(self, scene: SceneArrays, config: RendererConfig,
                  sky_radiance_fn: Callable,
                  env_irradiance_fn: Optional[Callable] = None,
                  env_prefiltered_fn: Optional[Callable] = None,
                  device=None, tracer_method: str = "auto",
-                 animator: Optional[Callable] = None):
+                 animator: Optional[Callable] = None, mesh: Optional[mesh_mod.Mesh] = None):
+        if mesh is not None:
+            if device is not None and mesh_mod.canonical(device) != mesh.devices[0]:
+                raise ValueError(f"HybridRenderer: device {device} is not the mesh's first "
+                                 f"device {mesh.devices[0]}, where the frame runs")
+            device = mesh.devices[0]
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("HybridRenderer runs on the GPU unless asked otherwise, and "
@@ -103,6 +117,16 @@ class HybridRenderer:
             self.scene, self.trace_scene, tracer_method)
         self.closest_surface_fn = bvh_mod.make_surface_tracer(
             self.scene, self.trace_scene, tracer_method)
+        # multi-device: every trace shards its rays over the mesh, each
+        # shard against its device's copy of the scene (none where the
+        # device is the renderer's)
+        self.mesh = mesh
+        if mesh is not None:
+            self._replicas = parallel_trace.replicate(mesh, self.scene, self.trace_scene)
+            self.closest_fn, self.visibility_fn, self.closest_surface_fn = \
+                parallel_trace.shard_renderer_tracers(
+                    mesh, self.closest_fn, self.visibility_fn, self.closest_surface_fn,
+                    self._replicas, tracer_method)
         # the probe grid is static per scene (ddgi.cpp:93-95, 115-118)
         lo, hi = self.scene.aabb()
         self.probe_grid = ddgi_mod.make_probe_grid(lo.cpu().numpy(), hi.cpu().numpy(),
@@ -165,8 +189,15 @@ class HybridRenderer:
         self._last_pose = (frame_index, m_cur)
         scene = dynamic.refit_scene(self.scene, m_cur)
         accel = bvh_mod.refit_accel(self.trace_scene, scene, self.tracer_method)
-        _, visibility_fn = bvh_mod.make_tracers(scene, accel, self.tracer_method)
+        closest_fn, visibility_fn = bvh_mod.make_tracers(scene, accel, self.tracer_method)
         closest_surface_fn = bvh_mod.make_surface_tracer(scene, accel, self.tracer_method)
+        if self.mesh is not None:
+            # the refit copied to the mesh's other devices, if any
+            replicas = parallel_trace.replicate(
+                self.mesh, scene, accel, base=(self.scene, self.trace_scene, self._replicas))
+            _, visibility_fn, closest_surface_fn = parallel_trace.shard_renderer_tracers(
+                self.mesh, closest_fn, visibility_fn, closest_surface_fn, replicas,
+                self.tracer_method)
         return closest_surface_fn, visibility_fn, dynamic.motion_deltas(m_cur, m_prev)
 
     def render_frame(self, state: RenderState, camera: Camera, light: Light):

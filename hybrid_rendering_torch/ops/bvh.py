@@ -485,15 +485,16 @@ def visibility_plain(ts: TraceScene, origin, direction, t_max, t_min=1e-3, stats
 
 
 def _check_rays(ts: TraceScene, origin, direction, t_max):
-    R = origin.shape[0]
-    kernels.require(origin, "origin", torch.float32, (R, 3))
-    kernels.require(direction, "direction", torch.float32, (R, 3))
-    kernels.require(t_max, "t_max", torch.float32, (R,))
+    """(R, launch device): the rays' device, which every operand must share."""
+    R, dev = origin.shape[0], origin.device
+    kernels.require(origin, "origin", torch.float32, (R, 3), dev)
+    kernels.require(direction, "direction", torch.float32, (R, 3), dev)
+    kernels.require(t_max, "t_max", torch.float32, (R,), dev)
     kernels.require(ts.nodes_packed, "nodes_packed", torch.int32,
-                    (ts.nodes_min.shape[0], 8))
+                    (ts.nodes_min.shape[0], 8), dev)
     kernels.require(ts.tris_packed, "tris_packed", torch.float32,
-                    (ts.tri_pos.shape[0], 12))
-    return R
+                    (ts.tri_pos.shape[0], 12), dev)
+    return R, dev
 
 
 def closest_hit_attrs(ts: TraceScene, origin, direction, t_max, t_min=1e-3):
@@ -503,18 +504,18 @@ def closest_hit_attrs(ts: TraceScene, origin, direction, t_max, t_min=1e-3):
     CUDA tensors launch csrc/trace.cu."""
     if kernels.on_cpu(origin):
         return closest_hit_attrs_plain(ts, origin, direction, t_max, t_min)
-    R = _check_rays(ts, origin, direction, t_max)
-    kernels.require(ts.attrs, "attrs", torch.float32, (ts.tri_pos.shape[0], ATTR))
-    dev = origin.device
+    R, dev = _check_rays(ts, origin, direction, t_max)
+    kernels.require(ts.attrs, "attrs", torch.float32, (ts.tri_pos.shape[0], ATTR), dev)
     t, u, v = torch.empty((3, R), dtype=torch.float32, device=dev).unbind(0)
     tri_id = torch.empty(R, dtype=torch.int32, device=dev)
     attrs = torch.empty((R, ATTR), dtype=torch.float32, device=dev)
-    err = kernels.lib().hr_trace_closest(
-        ts.nodes_packed.data_ptr(), ts.nodes_packed.shape[0], ts.tris_packed.data_ptr(),
-        ts.attrs.data_ptr(), ts.tris_packed.shape[0], origin.data_ptr(),
-        direction.data_ptr(), t_max.data_ptr(), R, t_min,
-        t.data_ptr(), u.data_ptr(), v.data_ptr(), tri_id.data_ptr(), attrs.data_ptr(),
-        kernels.stream_ptr())
+    with torch.cuda.device(dev):
+        err = kernels.lib().hr_trace_closest(
+            ts.nodes_packed.data_ptr(), ts.nodes_packed.shape[0], ts.tris_packed.data_ptr(),
+            ts.attrs.data_ptr(), ts.tris_packed.shape[0], origin.data_ptr(),
+            direction.data_ptr(), t_max.data_ptr(), R, t_min,
+            t.data_ptr(), u.data_ptr(), v.data_ptr(), tri_id.data_ptr(), attrs.data_ptr(),
+            kernels.stream_ptr(dev))
     kernels.check(err, "hr_trace_closest")
     closest_hit_attrs.launches += 1
     return Hit(t=t, tri_id=tri_id, u=u, v=v), attrs
@@ -527,14 +528,15 @@ def visibility(ts: TraceScene, origin, direction, t_max, t_min=1e-3):
     and answers every ray as the plain walk does."""
     if kernels.on_cpu(origin):
         return visibility_plain(ts, origin, direction, t_max, t_min)
-    R = _check_rays(ts, origin, direction, t_max)
+    R, dev = _check_rays(ts, origin, direction, t_max)
     kernels.require(ts.wide_packed, "wide_packed", torch.int32,
-                    (ts.wide_packed.shape[0], 7 * WIDE))
-    vis = torch.empty(R, dtype=torch.float32, device=origin.device)
-    err = kernels.lib().hr_trace_visibility(
-        ts.wide_packed.data_ptr(), ts.wide_packed.shape[0], ts.tris_packed.data_ptr(),
-        ts.tris_packed.shape[0], origin.data_ptr(), direction.data_ptr(),
-        t_max.data_ptr(), R, t_min, vis.data_ptr(), kernels.stream_ptr())
+                    (ts.wide_packed.shape[0], 7 * WIDE), dev)
+    vis = torch.empty(R, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = kernels.lib().hr_trace_visibility(
+            ts.wide_packed.data_ptr(), ts.wide_packed.shape[0], ts.tris_packed.data_ptr(),
+            ts.tris_packed.shape[0], origin.data_ptr(), direction.data_ptr(),
+            t_max.data_ptr(), R, t_min, vis.data_ptr(), kernels.stream_ptr(dev))
     kernels.check(err, "hr_trace_visibility")
     visibility.launches += 1
     return vis
@@ -593,14 +595,15 @@ def _delinearize(arr, shape, b):
     return arr.reshape(shape + tuple(arr.shape[1:]))
 
 
-def _map(fn, out):
+def _map(fn, out, *more):
     """Apply fn to every tensor of a trace result (tensor, Hit, Surface
-    or tuple of those)."""
+    or tuple of those); with `more` results of the same structure, fn
+    takes the matching tensor of each."""
     if isinstance(out, torch.Tensor):
-        return fn(out)
+        return fn(out, *more)
     if isinstance(out, tuple):
-        return tuple(_map(fn, o) for o in out)
-    return type(out)(**{f.name: fn(getattr(out, f.name))
+        return tuple(_map(fn, *parts) for parts in zip(out, *more))
+    return type(out)(**{f.name: fn(getattr(out, f.name), *(getattr(m, f.name) for m in more))
                         for f in dataclasses.fields(out)})
 
 

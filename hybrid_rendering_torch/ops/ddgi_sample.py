@@ -39,15 +39,18 @@ def sample_irradiance(grid: "ddgi_mod.ProbeGrid", state: "ddgi_mod.DDGIState",
     P = grid.num_probes
     scalars = scalars if scalars is not None else _scalars(grid, cfg)
     S, D = scalars[:2]
-    kernels.require(p, "p", torch.float32, (N, 3))
-    kernels.require(n, "n", torch.float32, (N, 3))
-    kernels.require(wo, "wo", torch.float32, (N, 3))
-    kernels.require(state.irradiance, "irradiance", torch.float32, (P, S, S, 3))
-    kernels.require(state.depth, "depth", torch.float32, (P, D, D, 2))
-    out = torch.empty((N, 3), dtype=torch.float32, device=p.device)
-    err = kernels.lib().hr_ddgi_sample(
-        state.irradiance.data_ptr(), state.depth.data_ptr(), *scalars,
-        p.data_ptr(), n.data_ptr(), wo.data_ptr(), N, out.data_ptr(), kernels.stream_ptr())
+    dev = p.device
+    kernels.require(p, "p", torch.float32, (N, 3), dev)
+    kernels.require(n, "n", torch.float32, (N, 3), dev)
+    kernels.require(wo, "wo", torch.float32, (N, 3), dev)
+    kernels.require(state.irradiance, "irradiance", torch.float32, (P, S, S, 3), dev)
+    kernels.require(state.depth, "depth", torch.float32, (P, D, D, 2), dev)
+    out = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = kernels.lib().hr_ddgi_sample(
+            state.irradiance.data_ptr(), state.depth.data_ptr(), *scalars,
+            p.data_ptr(), n.data_ptr(), wo.data_ptr(), N, out.data_ptr(),
+            kernels.stream_ptr(dev))
     kernels.check(err, "hr_ddgi_sample")
     sample_irradiance.launches += 1
     return out.reshape(shape + (3,))

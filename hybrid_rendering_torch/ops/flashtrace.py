@@ -245,23 +245,26 @@ def flash_visibility_plain(fs: FlashScene, origin, direction, t_max, t_min=1e-3)
 
 
 def _check(fs: FlashScene, origin, direction, t_max):
-    R = origin.shape[0]
-    kernels.require(origin, "origin", torch.float32, (R, 3))
-    kernels.require(direction, "direction", torch.float32, (R, 3))
-    kernels.require(t_max, "t_max", torch.float32, (R,))
+    """(R, launch device): the rays' device, which every operand must share."""
+    R, dev = origin.shape[0], origin.device
+    kernels.require(origin, "origin", torch.float32, (R, 3), dev)
+    kernels.require(direction, "direction", torch.float32, (R, 3), dev)
+    kernels.require(t_max, "t_max", torch.float32, (R,), dev)
     rows = fs.coef.shape[0]
-    kernels.require(fs.coef, "coef", torch.float32, (rows, COEF))
+    kernels.require(fs.coef, "coef", torch.float32, (rows, COEF), dev)
     if rows % TILE or rows < max(fs.num_tris, 1):
         raise ValueError(f"coef: {rows} rows do not pad {fs.num_tris} triangles to whole "
                          f"tiles of {TILE}")
-    return R
+    return R, dev
 
 
 @functools.lru_cache(maxsize=None)
 def _resident_blocks(device_index, rays_per_thread, any_hit=False):
-    """K6's (or, with `any_hit`, K6′'s) scan blocks the card holds at once."""
+    """K6's (or, with `any_hit`, K6′'s) scan blocks card `device_index`
+    holds at once (the occupancy query runs in that card's context)."""
     name = "hr_flash_visibility_blocks_per_sm" if any_hit else "hr_flash_closest_blocks_per_sm"
-    per_sm = getattr(kernels.lib(), name)(rays_per_thread)
+    with torch.cuda.device(device_index):
+        per_sm = getattr(kernels.lib(), name)(rays_per_thread)
     if per_sm < 1:
         raise RuntimeError(f"{name}({rays_per_thread}): {per_sm}")
     return per_sm * torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -293,14 +296,12 @@ def _launch_closest(fs: FlashScene, origin, direction, t_max, t_min, with_attrs,
     pre-tests' bounds scale the running best."""
     if not t_min >= 0:
         raise ValueError(f"flash_closest_hit on the GPU: t_min must be >= 0, got {t_min}")
-    R = _check(fs, origin, direction, t_max)
+    R, dev = _check(fs, origin, direction, t_max)
     feats = features(origin, direction, fs.center)
-    dev = origin.device
     num_tiles = fs.coef.shape[0] // TILE
     if plan is None:
         rpt = rays_per_thread(R)
-        index = dev.index if dev.index is not None else torch.cuda.current_device()
-        parts = split_parts(R, rpt, num_tiles, _resident_blocks(index, rpt))
+        parts = split_parts(R, rpt, num_tiles, _resident_blocks(dev.index, rpt))
     else:
         rpt, parts = plan[0], min(plan[1], num_tiles)
     t = torch.empty(R, dtype=torch.float32, device=dev)
@@ -314,15 +315,16 @@ def _launch_closest(fs: FlashScene, origin, direction, t_max, t_min, with_attrs,
     if with_attrs:
         if fs.attrs is None:
             raise ValueError("flash_closest_hit_attrs: the FlashScene has no attribute table")
-        kernels.require(fs.attrs, "attrs", torch.float32, (fs.num_tris, ATTR))
+        kernels.require(fs.attrs, "attrs", torch.float32, (fs.num_tris, ATTR), dev)
         attrs = torch.empty((R, ATTR), dtype=torch.float32, device=dev)
         attr_ptr, out_ptr = fs.attrs.data_ptr(), attrs.data_ptr()
     klo, pre = _pre_bounds(t_min)
-    err = kernels.lib().hr_flash_closest(
-        fs.coef.data_ptr(), num_tiles, attr_ptr, feats.data_ptr(), t_max.data_ptr(), R, t_min,
-        klo, pre, fs.det_bound, rpt, parts, ray_list.data_ptr(), count.data_ptr(),
-        keys.data_ptr(), t.data_ptr(), u.data_ptr(),
-        v.data_ptr(), tri_id.data_ptr(), out_ptr, kernels.stream_ptr())
+    with torch.cuda.device(dev):
+        err = kernels.lib().hr_flash_closest(
+            fs.coef.data_ptr(), num_tiles, attr_ptr, feats.data_ptr(), t_max.data_ptr(), R,
+            t_min, klo, pre, fs.det_bound, rpt, parts, ray_list.data_ptr(), count.data_ptr(),
+            keys.data_ptr(), t.data_ptr(), u.data_ptr(),
+            v.data_ptr(), tri_id.data_ptr(), out_ptr, kernels.stream_ptr(dev))
     kernels.check(err, "hr_flash_closest")
     return Hit(t=t, tri_id=tri_id, u=u, v=v), attrs
 
@@ -354,14 +356,12 @@ def _launch_visibility(fs: FlashScene, origin, direction, t_max, t_min, plan=Non
     on the card from the live count) only to hold every launch path to the
     plain version on small batches. Any t_min is taken. The scan forms each
     live ray's features from origin, direction and the scene's center."""
-    R = _check(fs, origin, direction, t_max)
-    kernels.require(fs.center, "center", torch.float32, (3,))
-    dev = origin.device
+    R, dev = _check(fs, origin, direction, t_max)
+    kernels.require(fs.center, "center", torch.float32, (3,), dev)
     num_tiles = fs.coef.shape[0] // TILE
     if plan is None:
         rpt = rays_per_thread(R)
-        index = dev.index if dev.index is not None else torch.cuda.current_device()
-        max_parts, resident = MAX_PARTS, _resident_blocks(index, rpt, any_hit=True)
+        max_parts, resident = MAX_PARTS, _resident_blocks(dev.index, rpt, any_hit=True)
     else:
         # a resident count above any block count: exactly plan[1] parts
         rpt, max_parts, resident = plan[0], plan[1], 1 << 30
@@ -369,11 +369,12 @@ def _launch_visibility(fs: FlashScene, origin, direction, t_max, t_min, plan=Non
     ray_list = torch.empty(R, dtype=torch.int32, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
     klo, pre = _pre_bounds(t_min)
-    err = kernels.lib().hr_flash_visibility(
-        fs.coef.data_ptr(), num_tiles, origin.data_ptr(), direction.data_ptr(),
-        fs.center.data_ptr(), t_max.data_ptr(), R, t_min, klo, pre,
-        fs.det_bound, rpt, max_parts, resident, ray_list.data_ptr(), count.data_ptr(),
-        vis.data_ptr(), kernels.stream_ptr())
+    with torch.cuda.device(dev):
+        err = kernels.lib().hr_flash_visibility(
+            fs.coef.data_ptr(), num_tiles, origin.data_ptr(), direction.data_ptr(),
+            fs.center.data_ptr(), t_max.data_ptr(), R, t_min, klo, pre,
+            fs.det_bound, rpt, max_parts, resident, ray_list.data_ptr(), count.data_ptr(),
+            vis.data_ptr(), kernels.stream_ptr(dev))
     kernels.check(err, "hr_flash_visibility")
     return vis
 

@@ -5,8 +5,11 @@ for ``sm_90a`` (one process per source, in parallel) and link into one
 shared library with a plain C interface, loaded with ctypes (no PyTorch
 headers, so the build takes seconds). The build runs at first use and
 again whenever a source is newer than the library.
-Every kernel launches on ``torch.cuda.current_stream()``; every C entry
-point returns ``cudaGetLastError()`` and ``check`` raises if it is not 0.
+Every kernel launches on its operands' device: the wrapper makes that
+device current (``torch.cuda.device``, which sets nothing when it already
+is) and launches on its current stream (``stream_ptr(device)``);
+``require`` refuses an operand on any other device. Every C entry point
+returns ``cudaGetLastError()`` and ``check`` raises if it is not 0.
 
 Each source has its own multiply-add flag (``_FMAD``). The default is
 ``-fmad=false``: no contraction, so a kernel rounds op by op like its plain
@@ -146,8 +149,9 @@ def lib():
         return _lib
 
 
-def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def stream_ptr(device=None) -> int:
+    """The current stream of `device` (of the current device when None)."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(err: int, name: str) -> None:
@@ -155,11 +159,16 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
-    """Validate a kernel operand: on the card, of `dtype`, contiguous and
-    (where given) of `shape`."""
+def require(t: torch.Tensor, name: str, dtype, shape=None, device=None) -> None:
+    """Validate a kernel operand: on the card, on the launch's `device`
+    (the current device when None), of `dtype`, contiguous and (where
+    given) of `shape`. An operand on another card is refused, not moved."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, but the kernel launches on {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():

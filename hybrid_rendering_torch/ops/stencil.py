@@ -133,29 +133,30 @@ def atrous_chain(color, variance, normal, depth, mask, *, steps, radius=1,
         raise ValueError(f"atrous_chain: 1 or 3 channels, got {C}")
     if not 0 <= radius <= 2:
         raise ValueError(f"atrous_chain: radius must be in [0, 2], got {radius}")
-    kernels.require(color, "color", torch.float32, (H, W) if C == 1 else (H, W, 3))
-    kernels.require(variance, "variance", torch.float32, (H, W))
-    kernels.require(normal, "normal", torch.float32, (H, W, 3))
-    kernels.require(depth, "depth", torch.float32, (H, W))
-    kernels.require(mask, "mask", torch.bool, (H, W))
-    lib, stream = kernels.lib(), kernels.stream_ptr()
+    dev = color.device
+    kernels.require(color, "color", torch.float32, (H, W) if C == 1 else (H, W, 3), dev)
+    kernels.require(variance, "variance", torch.float32, (H, W), dev)
+    kernels.require(normal, "normal", torch.float32, (H, W, 3), dev)
+    kernels.require(depth, "depth", torch.float32, (H, W), dev)
+    kernels.require(mask, "mask", torch.bool, (H, W), dev)
+    lib, stream = kernels.lib(), kernels.stream_ptr(dev)
     launches = _launches(tuple(int(s) for s in steps), int(radius), float(sigma_depth),
                          int(feedback_iteration), C)
     feedback = color
     # every launch's outputs, allocated once
     outs_c = torch.empty((len(launches),) + tuple(color.shape), dtype=color.dtype,
-                         device=color.device).unbind(0)
-    outs_v = torch.empty((len(launches), H, W), dtype=variance.dtype,
-                         device=color.device).unbind(0)
+                         device=dev).unbind(0)
+    outs_v = torch.empty((len(launches), H, W), dtype=variance.dtype, device=dev).unbind(0)
     planes = (normal.data_ptr(), depth.data_ptr(), mask.data_ptr(), H, W, int(radius))
     weights = (float(phi_color), float(phi_normal))
     for (n, steps_c, phis_c, tile_w, tile_h, threads, fb_at, is_feedback), out_c, out_v in zip(
             launches, outs_c, outs_v):
         out_fb = torch.empty_like(color) if fb_at >= 0 else None
-        err = lib.hr_atrous_fused(
-            C, color.data_ptr(), variance.data_ptr(), *planes, n, steps_c, phis_c, *weights,
-            fb_at, tile_w, tile_h, threads, out_c.data_ptr(), out_v.data_ptr(),
-            out_fb.data_ptr() if fb_at >= 0 else None, stream)
+        with torch.cuda.device(dev):
+            err = lib.hr_atrous_fused(
+                C, color.data_ptr(), variance.data_ptr(), *planes, n, steps_c, phis_c,
+                *weights, fb_at, tile_w, tile_h, threads, out_c.data_ptr(), out_v.data_ptr(),
+                out_fb.data_ptr() if fb_at >= 0 else None, stream)
         kernels.check(err, "hr_atrous_fused")
         atrous_chain.launches += 1
         color, variance = out_c, out_v
@@ -188,18 +189,20 @@ def bilateral_blur(img, normal, depth, mask, *, radius=4, depth_phi=1.0,
         # JAX package's raise on it too
         raise ValueError(f"bilateral_blur: radius must be in "
                          f"[1, {kernels.MAX_BLUR_RADIUS}], got {radius}")
-    kernels.require(img, "img", torch.float32, (H, W))
-    kernels.require(normal, "normal", torch.float32, (H, W, 3))
-    kernels.require(depth, "depth", torch.float32, (H, W))
-    kernels.require(mask, "mask", torch.bool, (H, W))
+    dev = img.device
+    kernels.require(img, "img", torch.float32, (H, W), dev)
+    kernels.require(normal, "normal", torch.float32, (H, W, 3), dev)
+    kernels.require(depth, "depth", torch.float32, (H, W), dev)
+    kernels.require(mask, "mask", torch.bool, (H, W), dev)
     taps = kernels.GaussTaps()
     for i, g in enumerate(filters.gauss_taps(radius)):
         taps.w[i] = g
     out = torch.empty_like(img)
-    err = kernels.lib().hr_bilateral_blur(
-        img.data_ptr(), normal.data_ptr(), depth.data_ptr(), mask.data_ptr(),
-        H, W, int(radius), taps, max(float(depth_phi), 1e-6), float(normal_power),
-        out.data_ptr(), kernels.stream_ptr())
+    with torch.cuda.device(dev):
+        err = kernels.lib().hr_bilateral_blur(
+            img.data_ptr(), normal.data_ptr(), depth.data_ptr(), mask.data_ptr(),
+            H, W, int(radius), taps, max(float(depth_phi), 1e-6), float(normal_power),
+            out.data_ptr(), kernels.stream_ptr(dev))
     kernels.check(err, "hr_bilateral_blur")
     bilateral_blur.launches += 1
     return out
