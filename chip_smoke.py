@@ -13,6 +13,9 @@
     python3 chip_smoke.py --parallel-only  (parallel_phase alone: the
                                             multi-device path on meshes that
                                             repeat the card; no result line)
+    python3 chip_smoke.py --shade-only     (shade_phase alone: K7's checks,
+                                            edge cases, times and the
+                                            frames' waits; no result line)
     python3 chip_smoke.py --profiler-effect  (K4 counted by short
                                             torch.profiler sessions before
                                             and after profiled runs; the
@@ -83,7 +86,18 @@ and ``viewer_torch.py``'s /stats and first frame; then, alone again, each
 pass timed lit by the image environment and by the Hosek sky in
 alternating windows, and the Hosek fit's time on the host.
 Every frame is timed before the first torch.profiler session of the
-process, which slows the frames after it. Then it times the bench frame
+process, which slows the frames after it. Then K7 (``shade_phase``, in a
+process of its own, ``--shade-only``): at the
+direct light of DDGI's probe hits, of the reflection hits and of each
+path-traced bounce, of the bench frame and of the hero, K7a's rays and
+attenuation bit for bit against its plain stage and K7b's radiance
+against its plain stage (the ProceduralSky evaluated in the kernel, and
+given), the whole call against the plain path and without a
+synchronizing call, K7a and K7b timed beside their byte bounds with the
+kernels a call puts on the card; its edge cases (point and spot lights,
+hard shadows, Preetham and constant skies, masks, 1 to 4,099 points); and
+the synchronizing calls of a hybrid frame and a path-traced sample by
+repo line. Then it times the bench frame
 pass by pass and under torch.profiler (K4 must put one kernel on the card
 a call there). Last, ``bench_torch.py`` runs in a subprocess
 with a 300 s budget,
@@ -110,6 +124,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 from collections import Counter
 import json
 import os
@@ -144,6 +159,9 @@ STENCIL_TOL = 1e-5  # K4: rounds like its plain version
 # (the HDR frame)
 K3_TOL = 1e-4
 K5_TOL = 1e-5
+# K7 against its plain stages on the card: its rays and att bit for bit
+# (a failure whatever the difference), its radiance within K7_TOL
+K7_TOL = 1e-5
 # card (kernels) vs CPU (plain) over three moving-camera frames: a ray that
 # grazes an edge can hit the other triangle when positions differ by an ulp
 # (1% of pixels beyond 1e-3 for the shaded planes), and TAA picks each
@@ -167,7 +185,7 @@ K6_K1_MIN_AGREE = 0.999
 T_MIN = 1e-3  # the tracers' t_min
 # kernels whose registers, spills and shared memory are printed from nvcc's log
 PTXAS_KERNELS = ("closest_kernel", "anyhit", "atrous_tile", "blur_tile", "ddgi_sample_kernel",
-                 "k6_", "k6p_")
+                 "k6_", "k6p_", "shade_")
 # the launch plans of K6 and K6′ held to the plain version on their edge
 # cases beside the wrapper's own choice: (rays a thread, parts of the split)
 K6_EDGE_PLANS = ((1, 1), (2, 1), (1, 8), (2, 8))
@@ -365,7 +383,9 @@ def wavefronts(r, state, cam, light):
     reflection-hit shadow rays (K2), the three sampler calls (K5); and the
     reflections' temporal plane with its denoise mask (K3, C=3). `calls`
     holds the tracer calls of the K1 and K2 sites as the renderer makes
-    them (the shadow + AO site: the two requests of its ``.many``)."""
+    them (the shadow + AO site: the two requests of its ``.many``; the
+    probe sun and sky sites: the two halves of the DDGI update's one
+    call)."""
     from hybrid_rendering_torch.models import (
         ao, ddgi, deferred, gbuffer, reflections, shadows)
     from hybrid_rendering_torch.ops import bvh
@@ -422,6 +442,13 @@ def wavefronts(r, state, cam, light):
     def rays(call):
         return bvh._linearize_req(*call[0])[0]
 
+    # the DDGI update traces its sun and sky rays in one call (K7's
+    # layout: the shadow rays, then the sky rays): one site each half
+    probe = probe_vis.calls[0][0]
+    half = probe[0].shape[0] // 2
+    probe_sun, probe_sky = (tuple(a[s] for a in probe)
+                            for s in (slice(None, half), slice(half, None)))
+
     def k5_call(call, st=None):
         (a, kw) = call
         if st is None:
@@ -432,13 +459,12 @@ def wavefronts(r, state, cam, light):
         # the tracer calls as the renderer makes them (images unlinearized)
         calls={"K1": {"primary": gb_surf.calls[0][0], "probe": probe_surf.calls[0][0],
                       "reflection": refl_surf.calls[0][0]},
-               "K2": {"shadow + AO": [s_rays[:3], a_rays], "probe sun": probe_vis.calls[0][0],
-                      "probe sky": probe_vis.calls[1][0],
-                      "reflection-hit shadow": refl_vis.calls[0][0]}},
+               "K2": {"shadow + AO": [s_rays[:3], a_rays], "probe sun": probe_sun,
+                      "probe sky": probe_sky, "reflection-hit shadow": refl_vis.calls[0][0]}},
         primary=primary, vis_rays=vis_rays, gb=gb, gb_a=gb_a, vis=vis, var=var,
         hdr=hdr.contiguous(), ao=ao_t,
         k1_more={"probe": rays(probe_surf.calls[0]), "reflection": rays(refl_surf.calls[0])},
-        k2_more={"probe sun": rays(probe_vis.calls[0]), "probe sky": rays(probe_vis.calls[1]),
+        k2_more={"probe sun": rays((probe_sun, {})), "probe sky": rays((probe_sky, {})),
                  "reflection-hit shadow": rays(refl_vis.calls[0])},
         k5={"probe bounce": k5_call(bounce.calls[0]), "screen": k5_call(screen.calls[0]),
             "reflections merge": k5_call(merged.calls[0], ddgi_state)},
@@ -519,7 +545,7 @@ def check_k2(ts, rays, label, name):
     stats = {}
     ref, plain_ms = wall_ms(lambda: bvh.visibility_plain(ts, o, d, tm, stats=stats))
     live = tm > 0
-    share = (vis[live] == ref[live]).float().mean().item()
+    share = share_equal(vis[live], ref[live])  # counted in integers: the bar is 1.0
     err = (vis[live] - ref[live]).abs().max().item() if live.any() else 0.0
     print(f"[{label}] K2 any-hit, {name}: {o.shape[0]} rays ({live.sum().item()} live), "
           f"agree {share:.6f}, unoccluded {vis[live].mean().item():.4f}; the plain walk: "
@@ -1354,7 +1380,7 @@ def slice_phase(dev, counters):
           f"frames, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"launches {launches} ({per_frame} per frame)")
     check_ldr(out["ldr"], "full frame")
-    for k in ("K1", "K2", "K3", "K4", "K5"):
+    for k in ("K1", "K2", "K3", "K4", "K5", "K7"):
         check(launches[k] > 0, f"{k} was not launched on the main path")
     # K3: the shadows' and the reflections' chain, each in the launches of
     # its plan
@@ -2021,7 +2047,7 @@ def parallel_phase(dev, counters):
         check(sh[k] > 0, f"{k} was not launched on the sharded bench frame")
     for k in ("K1", "K2"):
         check(sh[k] == n * un[k], f"{k}: {sh[k]} launches a sharded frame, {un[k]} unsharded")
-    for k in ("K3", "K4", "K5", "K6", "K6′"):
+    for k in ("K3", "K4", "K5", "K6", "K6′", "K7"):
         check(sh[k] == un[k], f"{k}: {sh[k]} launches a sharded frame, {un[k]} unsharded")
     print(f"[parallel] bench frame {W}x{H} over {n} x {dev} (HybridRenderer(mesh=)): LDR and HDR "
           f"bit for bit over 1 + {PARALLEL_FRAMES} moving-camera frames; "
@@ -2384,7 +2410,7 @@ def hero_phase(dev, counters):
     print(f"hero frame: {ms:.2f} ms/frame over {HERO_FRAMES} frames, launches {launches} "
           f"({per_frame} per frame)")
     check_ldr(out["ldr"], "hero frame")
-    for k in ("K1", "K2", "K3", "K4", "K5"):
+    for k in ("K1", "K2", "K3", "K4", "K5", "K7"):
         check(launches[k] > 0, f"{k} was not launched on the hero frame")
     for k in ("K6", "K6′"):
         check(launches[k] == 0, f"{k} was launched on the hero frame")
@@ -2610,12 +2636,307 @@ def profiler_effect(dev, pairs=3):
           "ms/frame" % bench_phase())
 
 
+def shade_calls(r, light, camkw):
+    """The direct_lighting calls of one hybrid frame (DDGI's probe hits,
+    the reflection hits) and one 1-spp path-traced sample (its bounces),
+    each as (site, args, kw)."""
+    from hybrid_rendering_torch.config import PathTracerConfig
+    from hybrid_rendering_torch.models import ddgi, path_tracer, reflections
+    from hybrid_rendering_torch.ops import lighting
+
+    calls = []
+
+    def recording(site, fn):
+        def run(*args, **kw):
+            calls.append((site, args, kw))
+            return fn(*args, **kw)
+        return run
+
+    saved = ddgi.direct_lighting, reflections.direct_lighting, lighting.direct_lighting
+    ddgi.direct_lighting = recording("ddgi", saved[0])
+    reflections.direct_lighting = recording("reflections", saved[1])
+    lighting.direct_lighting = recording("pt", saved[2])
+    try:
+        cam = r.make_camera(camkw["eye"], camkw["target"], 0)
+        r.render_frame(r.create_state(), cam, light)
+        path_tracer.trace_sample(r.scene, r.closest_surface_fn, r.visibility_fn, cam, light,
+                                 r.sky_radiance_fn, W, H, 0, PathTracerConfig(max_ray_bounces=3))
+    finally:
+        ddgi.direct_lighting, reflections.direct_lighting, lighting.direct_lighting = saved
+    out, bounce = [], 0
+    for site, a, k in calls:
+        if site == "pt":
+            site, bounce = f"pt bounce {bounce}", bounce + 1
+        out.append((site, a, k))
+    return out
+
+
+def plain_direct_lighting(light, wo, n, p, f0, cd, rough, *, visibility_fn=None,
+                          throughput=None, rng_shadow=None, rng_sky=None, sky_radiance_fn=None,
+                          ray_origin_bias=0.1, valid=None):
+    """direct_lighting's plain path on any device: its two plain stages
+    around one visibility call (what CPU tensors run)."""
+    from hybrid_rendering_torch.ops import lighting
+
+    lead = tuple(p.shape[:-1])
+    rng_sky = rng_sky if sky_radiance_fn is not None else None
+    k = 1 if rng_sky is None else 2
+    origin, direction, t_max, att = lighting.shade_rays_plain(light, p, n, rng_shadow, rng_sky,
+                                                              valid, ray_origin_bias)
+    vis = None if visibility_fn is None else visibility_fn(origin, direction, t_max)
+    sky_li = None if k == 1 else sky_radiance_fn(direction.reshape((2,) + lead + (3,))[1])
+    return lighting.shade_combine_plain(light, wo, n, f0, cd, rough, att, direction, vis,
+                                        throughput, sky_li)
+
+
+def k7_bytes(N, k, soft, valid, throughput, sky_given):
+    """Bytes K7a and K7b must move for N points (each input read once,
+    each output written once): K7a reads p, n and the rng pairs (and the
+    mask) and writes k rays (origin, direction, t_max) and att; K7b reads
+    wo, n, f0, c_diffuse, roughness, att, the k directions and
+    visibilities (and the throughput, and a given sky radiance) and
+    writes the radiance."""
+    a = N * (24 + 8 * soft + 8 * (k == 2) + valid + 28 * k + 4)
+    b = N * (52 + 4 + 12 * throughput + 12 * sky_given + 16 * k + 12)
+    return a, b
+
+
+def kernel_rows(fn):
+    """Device kernels (name, count) that one call of fn() puts on the
+    card, from a torch.profiler session (``device_time``'s reading)."""
+    act = torch.profiler.ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return Counter(e.name for e in prof.events()
+                   if e.device_type == cuda and not e.name.startswith("hr::"))
+
+
+def check_k7(site, args, kw, timing, fails):
+    """K7 at one direct_lighting call of the frame: K7a's rays and att
+    against shade_rays_plain bit for bit, K7b against shade_combine_plain
+    (the sky evaluated in the kernel, and given) on the same rays and
+    visibilities; the whole call on the card against the plain path; its
+    synchronizing calls (none where the sky is a ProceduralSky or absent).
+    With `timing`, K7a, K7b and the whole call timed beside the plain
+    stages and the byte bound. Failures are appended to `fails`."""
+    from hybrid_rendering_torch.ops import bvh, lighting, shade
+
+    light, wo, n, p, f0, cd, rough = args
+    vis_fn, tp, rs = kw.get("visibility_fn"), kw.get("throughput"), kw.get("rng_shadow")
+    sky_fn, valid = kw.get("sky_radiance_fn"), kw.get("valid")
+    rsky = kw.get("rng_sky") if sky_fn is not None else None
+    bias = kw.get("ray_origin_bias", 0.1)
+    lead, N = tuple(p.shape[:-1]), p.numel() // 3
+    k = 1 if rsky is None else 2
+    req = (k * lead[0],) + lead[1:]
+    a_args = (light, p, n, rs, rsky, valid, bias)
+    got_a = shade.shade_rays(*a_args)
+    ref_a, plain_a_ms = wall_ms(lambda: lighting.shade_rays_plain(*a_args))
+    a_same = True
+    for name, g, w in zip(("origin", "direction", "t_max", "att"), got_a, ref_a):
+        w = w.reshape(g.shape)
+        if not bits_equal(g, w):
+            a_same = False
+            off = (g != w) & ~(torch.isnan(g) & torch.isnan(w))
+            fails.append(f"K7a {site}: {name} differs from the plain stage at "
+                         f"{int(off.sum())} of {g.numel()} values, max |d| "
+                         f"{float((g - w)[off].abs().max())}")
+    origin, direction, t_max, att = got_a
+    live = int((t_max[:N] > 0).sum())
+    vis = None if vis_fn is None else vis_fn(origin.reshape(req + (3,)),
+                                             direction.reshape(req + (3,)), t_max.reshape(req))
+    sky = None if k == 1 else shade.procedural_sky(sky_fn)
+    sky_li = None if k == 1 else sky_fn(direction.reshape((2,) + lead + (3,))[1])
+    b_args = (light, wo, n, f0, cd, rough, att, direction, vis, tp)
+    ref_b, plain_b_ms = wall_ms(lambda: lighting.shade_combine_plain(
+        light, wo, n, f0, cd, rough, att.reshape(lead), direction.reshape(req + (3,)), vis, tp,
+        sky_li).reshape(N, 3))
+    errs = {}
+    for mode, (sk, li) in {"in the kernel": (sky, None), "given": (None, sky_li)}.items():
+        if mode == "in the kernel" and sky is None and k == 2:
+            continue
+        got_b = shade.shade_combine(*b_args, sk, li)
+        d = (got_b - ref_b).abs()
+        d[torch.isnan(got_b) & torch.isnan(ref_b)] = 0.0
+        errs[mode] = (float(d.max()), bits_equal(got_b, ref_b))
+        if k == 1:
+            break
+    whole = lighting.direct_lighting(*args, **kw)
+    ref = plain_direct_lighting(*args, **kw)
+    d = (whole - ref).abs()
+    d[torch.isnan(whole) & torch.isnan(ref)] = 0.0
+    whole_err = float(d.max())
+    waits = synchronizing_calls(lambda: lighting.direct_lighting(*args, **kw))
+    plain_waits = synchronizing_calls(lambda: plain_direct_lighting(*args, **kw))
+    if (k == 1 or sky is not None) and waits:
+        fails.append(f"K7 {site}: {len(waits)} synchronizing calls in direct_lighting: {waits}")
+    sky_label = "none" if k == 1 else ("ProceduralSky" if sky is not None
+                                       else type(getattr(sky_fn, "__self__", sky_fn)).__name__)
+    print(f"K7 {site}: {N} points, {k} ray(s) a point, {live} live shadow rays, sky {sky_label}, "
+          f"throughput {tp is not None}, mask {valid is not None}: K7a rays and att "
+          f"{'bit for bit' if a_same else 'DIFFER'}; "
+          f"K7b " + ", ".join(f"sky {m}: max abs err {e:.3g}{' (bit for bit)' if same else ''}"
+                              for m, (e, same) in errs.items())
+          + f"; the whole call against the plain path: max abs err {whole_err:.3g}; "
+          f"synchronizing calls {len(waits)} (plain path {len(plain_waits)})")
+    err = max([e for e, _ in errs.values()] + [whole_err])
+    if err > K7_TOL:
+        fails.append(f"K7b {site}: max abs err {err} against the plain stages")
+    if not timing:
+        return err, None
+    ab, bb = k7_bytes(N, k, rs is not None, valid is not None, tp is not None,
+                      k == 2 and sky is None)
+    bound_a, bound_b = bound(ab, 0), bound(bb, 0)
+    ms_a, q_a = (cuda_ms(lambda: shade.shade_rays(*a_args), 20, queued=q) for q in (False, True))
+    ms_b, q_b = (cuda_ms(lambda: shade.shade_combine(*b_args, sky, None if sky else sky_li), 20,
+                         queued=q) for q in (False, True))
+    ms_whole = cuda_ms(lambda: lighting.direct_lighting(*args, **kw), 10)
+    _, plain_whole = wall_ms(lambda: plain_direct_lighting(*args, **kw))
+    before = (shade.shade_rays.launches, shade.shade_combine.launches, bvh.visibility.launches)
+    rows = kernel_rows(lambda: lighting.direct_lighting(*args, **kw))
+    after = (shade.shade_rays.launches, shade.shade_combine.launches, bvh.visibility.launches)
+    plain_rows = kernel_rows(lambda: plain_direct_lighting(*args, **kw))
+    print(f"K7 {site}: K7a {ms_a:.4f} ms ({q_a:.4f} ms queued), bound {bound_a[0]:.4f} ms "
+          f"({ab} bytes), share {bound_a[0] / ms_a:.1%} ({bound_a[0] / q_a:.1%} queued); "
+          f"K7b {ms_b:.4f} ms ({q_b:.4f} ms queued), bound {bound_b[0]:.4f} ms ({bb} bytes), "
+          f"share {bound_b[0] / ms_b:.1%} ({bound_b[0] / q_b:.1%} queued); plain stages "
+          f"{plain_a_ms:.3f} + {plain_b_ms:.3f} ms; the whole call {ms_whole:.3f} ms (plain "
+          f"path {plain_whole:.3f} ms); launches a call: K7a {after[0] - before[0]}, "
+          f"K7b {after[1] - before[1]}, K2 {after[2] - before[2]}; device kernels a call "
+          f"{sum(rows.values())} ({dict(rows)}), plain path {sum(plain_rows.values())}")
+    ms, q = ms_a + ms_b, q_a + q_b
+    return err, (ms, q, plain_a_ms + plain_b_ms, bound_a[0] + bound_b[0], "bytes",
+                 sum(rows.values()), sum(plain_rows.values()))
+
+
+def k7_edge_cases(dev, fails):
+    """direct_lighting on the card against its plain path on the card, on
+    inputs the frames do not give: point and spot lights, hard shadows,
+    skies K7b does not evaluate (Preetham, constant: their radiance is
+    given), masks, no throughput, no visibility, batches of 1, 31, 33 and
+    4,099 points and an image-shaped batch. The visibility is a function
+    of the ray alone (blocked heading down, or at t_max = 0). Returns the
+    largest difference."""
+    from hybrid_rendering_torch import types
+    from hybrid_rendering_torch.ops import brdf, lighting
+    from hybrid_rendering_torch.ops.sky import ConstantSky, PreethamSky, ProceduralSky
+
+    lights = {"directional": types.Light.directional((0.35, 0.9, 0.25), radius=0.05),
+              "point": types.Light.point((1.0, 6.0, -2.0), intensity=40.0, radius=0.3),
+              "spot": types.Light.spot((0.0, 9.0, 0.0), (0.0, -1.0, 0.1), intensity=250.0,
+                                       radius=0.3, inner_angle_deg=35.0, outer_angle_deg=55.0)}
+    sun = np.asarray([0.3, 0.8, 0.2])
+    skies = {"procedural": ProceduralSky.create(sun).to(dev),
+             "preetham": PreethamSky.create(sun).to(dev),
+             "constant": ConstantSky(torch.tensor([0.3, 0.5, 0.7], device=dev))}
+
+    def vis(o, d, t_max):
+        return torch.where((d[..., 1] > -0.2) & (t_max > 0.0), 1.0, 0.0)
+
+    worst, cases = 0.0, 0
+    rs = np.random.RandomState(7)
+    for lead in ((1,), (31,), (33,), (4099,), (36, 64)):
+        def arr(*shape, lo=0.0, hi=1.0):
+            return torch.from_numpy(rs.uniform(lo, hi, lead + shape).astype(np.float32)).to(dev)
+        p = arr(3, lo=-5.0, hi=5.0)
+        n = torch.nn.functional.normalize(arr(3, lo=-1.0, hi=1.0), dim=-1)
+        wo = torch.nn.functional.normalize(arr(3, lo=-1.0, hi=1.0), dim=-1)
+        albedo, metal, rough = arr(3), arr(), arr(lo=0.05)
+        f0 = brdf.f0_from_metallic(albedo, metal)
+        tp, r_sh, r_sky = arr(3, hi=2.0), arr(2), arr(2)
+        valid = arr() < 0.7
+        for (lname, light), (sname, sky) in itertools.product(lights.items(), skies.items()):
+            light = light.to(dev)
+            for soft, mask, use_tp, use_vis in ((True, True, True, True),
+                                                (False, False, False, True),
+                                                (True, False, True, False)):
+                kw = dict(visibility_fn=vis if use_vis else None,
+                          throughput=tp if use_tp else None, rng_shadow=r_sh if soft else None,
+                          rng_sky=r_sky, sky_radiance_fn=sky.radiance,
+                          valid=valid if mask else None)
+                args = (light, wo, n, p, f0, albedo, rough)
+                got = lighting.direct_lighting(*args, **kw)
+                ref = plain_direct_lighting(*args, **kw)
+                if not bits_equal(got, ref):
+                    d = float((got - ref).abs().max())
+                    worst = max(worst, d)
+                    if d > K7_TOL:
+                        fails.append(f"K7 edge {lead} {lname} {sname} soft={soft} mask={mask} "
+                                     f"throughput={use_tp} vis={use_vis}: max abs err {d}")
+                cases += 1
+    print(f"[edge] K7: {cases} cases (3 light types x 3 skies x soft/hard, masks, throughput, "
+          f"no visibility; 1, 31, 33, 4,099 and 36x64 points): max abs err against the plain "
+          f"path {worst:.3g}")
+    return worst
+
+
+def shade_subprocess():
+    """shade_phase in a fresh process (``--shade-only``), its lines echoed:
+    it counts the kernels a call puts on the card in short torch.profiler
+    sessions, which in this process would come after other sessions and
+    lose kernels, and would make profile_phase's lose them. Returns K7's
+    row of the kernel table, its last line."""
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--shade-only"],
+                          capture_output=True, text=True, timeout=900, cwd=ROOT)
+    print("\n".join(l for l in proc.stdout.splitlines()
+                    if l.startswith(("K7", "[edge] K7", "[waits]", "FAIL"))))
+    check(proc.returncode == 0, f"chip_smoke.py --shade-only exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    return {k: tuple(v) for k, v in json.loads(proc.stdout.splitlines()[-1]).items()}
+
+
+def shade_phase(dev):
+    """K7 at its three sites (DDGI's probe hits, the reflection hits, the
+    path tracer's bounces) of the bench frame (shadows_test) and the hero
+    (sponza_scan), 1920x1080 (``check_k7``, the first bounce and both
+    passes timed); its edge cases; and the synchronizing calls of one
+    hybrid frame and one path-traced sample of each scene, by site.
+    Returns {"K7": (max abs err, ms, plain_ms, bound_ms, bound_by)} of the
+    bench frame's first bounce, for the kernel table."""
+    from hybrid_rendering_torch.config import PathTracerConfig
+    from hybrid_rendering_torch.models import path_tracer
+
+    fails, timed, err = [], None, 0.0
+    for scene in (SCENE, HERO_SCENE):
+        r, light, camkw = bench_torch._build(scene, W, H, device=dev)
+        for site, args, kw in shade_calls(r, light, camkw):
+            e, t = check_k7(f"{scene} {site}", args, kw, site != "pt bounce 2", fails)
+            err = max(err, e)
+            if scene == SCENE and site == "pt bounce 0":
+                timed = t
+        cam = r.make_camera(camkw["eye"], camkw["target"], 0)
+        state = r.create_state()
+        r.render_frame(state, cam, light)
+        frame = Counter(synchronizing_calls(lambda: r.render_frame(state, cam, light)))
+        sample = Counter(synchronizing_calls(lambda: path_tracer.trace_sample(
+            r.scene, r.closest_surface_fn, r.visibility_fn, cam, light, r.sky_radiance_fn, W, H,
+            0, PathTracerConfig(max_ray_bounces=3))))
+        print(f"[waits] {scene} hybrid frame: {sum(frame.values())} synchronizing calls "
+              f"{dict(frame)}")
+        print(f"[waits] {scene} path-traced sample: {sum(sample.values())} synchronizing calls "
+              f"{dict(sample)}")
+        del r
+        torch.cuda.empty_cache()
+    err = max(err, k7_edge_cases(dev, fails))
+    for f in fails:
+        print("FAIL " + f)
+    check(not fails, f"K7: {len(fails)} check(s) failed")
+    ms, q, plain_ms, bnd, by, _, _ = timed
+    print(f"K7 bench frame, first bounce: K7a + K7b {ms:.4f} ms ({q:.4f} ms queued), bound "
+          f"{bnd:.4f} ms, share {bnd / ms:.1%} ({bnd / q:.1%} queued)")
+    return {"K7": (err, ms, plain_ms, bnd, by)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on a GPU",
               file=sys.stderr)
         return 1
-    from hybrid_rendering_torch.ops import bvh, ddgi_sample, flashtrace, kernels, stencil
+    from hybrid_rendering_torch.ops import bvh, ddgi_sample, flashtrace, kernels, shade, stencil
     from hybrid_rendering_torch.scene import native
 
     dev = torch.device("cuda", 0)
@@ -2659,11 +2980,18 @@ def main() -> int:
         # work on the dense kernels; prints no result line
         dense_phase(dev)
         return 0
+    if "--shade-only" in sys.argv[1:]:
+        # the K7 checks, edge cases, times and waits alone: a short call
+        # for work on the direct light, and the full run's shade phase;
+        # prints no result line, its last line K7's row of the kernel table
+        print(json.dumps(shade_phase(dev)))
+        return 0
     counters = {"K1": (bvh.closest_hit_attrs,), "K2": (bvh.visibility,),
                 "K3": (stencil.atrous_chain,), "K4": (stencil.bilateral_blur,),
                 "K5": (ddgi_sample.sample_irradiance,),
                 "K6": (flashtrace.flash_closest_hit, flashtrace.flash_closest_hit_attrs),
-                "K6′": (flashtrace.flash_visibility,)}
+                "K6′": (flashtrace.flash_visibility,),
+                "K7": (shade.shade_rays, shade.shade_combine)}
     card = smi.stdout.strip().splitlines()[0]
     if "--apps-only" in sys.argv[1:]:
         # render_torch.py and viewer_torch.py alone: a short call for work
@@ -2713,6 +3041,8 @@ def main() -> int:
     t = lap("apps_phase", t)
     # torch.profiler from here on: a session slows every frame timed after
     # it in the process, so the frames above are timed before the first
+    timed.update(shade_subprocess())
+    t = lap("shade_phase", t)
     profile_phase(dev, launches["K4"] / (TIMED_FRAMES + 1))
     t = lap("profile_phase", t)
     bench_phase()
@@ -2726,6 +3056,7 @@ def main() -> int:
         "K5": ("ddgi_sample.cu", "hybrid_rendering_tpu/ops/pallas/ddgi_sample.py:537"),
         "K6": ("flashtrace.cu", "hybrid_rendering_tpu/ops/pallas/flashtrace.py:411"),
         "K6′": ("flashtrace.cu", "hybrid_rendering_tpu/ops/pallas/flashtrace.py:1742"),
+        "K7": ("shade.cu", None),  # no TPU kernel: XLA fuses the JAX package's direct light
     }
     # no single PyTorch call computes any of these functions: library_ms
     # is null for every row

@@ -90,14 +90,12 @@ def trace_wavefront(scene: SceneArrays, closest_surface_fn: Callable,
             rng, rs = rng_ops.next_vec2(rng)
             rng, rsky = rng_ops.next_vec2(rng)
 
-            def vis_alive(o_, d_, tm_, _alive=alive):
-                return visibility_fn(o_, d_, torch.where(_alive, tm_, 0.0))
-
+            # dead paths trace no shadow or sky ray
             lo = lighting.direct_lighting(
-                light, wo, n, p, f0, c_diffuse, surf.roughness, visibility_fn=vis_alive,
+                light, wo, n, p, f0, c_diffuse, surf.roughness, visibility_fn=visibility_fn,
                 throughput=T, rng_shadow=rs, rng_sky=rsky if cfg.sample_sky else None,
                 sky_radiance_fn=sky_radiance_fn if cfg.sample_sky else None,
-                ray_origin_bias=cfg.shadow_ray_bias)
+                ray_origin_bias=cfg.shadow_ray_bias, valid=alive)
             L = torch.where(alive[:, None], L + lo + T * surf.emissive, L)
 
         if depth + 1 >= cfg.max_ray_bounces:

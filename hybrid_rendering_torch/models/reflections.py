@@ -102,13 +102,10 @@ def ray_trace(closest_surface_fn: Callable, visibility_fn: Callable, gb: GBuffer
     s_wo = -ray_dir
     rng, rs = rng_ops.next_vec2(rng)
 
-    def vis_at_hits(o_, d_, tm_):
-        # shadow rays only where the reflection ray hit geometry
-        return visibility_fn(o_, d_, torch.where(hit_valid, tm_, 0.0))
-
+    # shadow rays only where the reflection ray hit geometry
     hit_color = direct_lighting(light, s_wo, sn, sp, f0, c_diff, s_rough,
-                                visibility_fn=vis_at_hits,
-                                rng_shadow=rs.reshape(h, w, 2)) + surf.emissive
+                                visibility_fn=visibility_fn, rng_shadow=rs.reshape(h, w, 2),
+                                valid=hit_valid) + surf.emissive
 
     # one probe-grid evaluation serves the hit-point diffuse (needs_ray
     # pixels) and the rough pixels' DDGI along R (use_ddgi pixels): the

@@ -10,12 +10,14 @@ from typing import Callable, Optional
 import torch
 
 from hybrid_rendering_torch.ops import brdf as brdf_ops
+from hybrid_rendering_torch.ops import kernels, shade
 from hybrid_rendering_torch.ops.math3d import cross, dot, normalize, smoothstep
 from hybrid_rendering_torch.types import (
     LIGHT_TYPE_DIRECTIONAL,
     LIGHT_TYPE_POINT,
     Light,
 )
+from hybrid_rendering_torch.utils import profiler
 
 M_PI = math.pi
 
@@ -67,42 +69,103 @@ def fetch_light_properties(light: Light, p, n, rng2=None, soft_shadows=True):
     return li, wi, t_max, att
 
 
-def direct_lighting(light: Light, wo, n, p, f0, diffuse_color, roughness, *,
-                    visibility_fn: Optional[Callable] = None, throughput=None,
-                    rng_shadow=None, rng_sky=None,
-                    sky_radiance_fn: Optional[Callable] = None,
-                    ray_origin_bias: float = 0.1):
-    """Reference direct_lighting (lighting.glsl:117-196).
+def shade_rays_plain(light: Light, p, n, rng_shadow=None, rng_sky=None, valid=None,
+                     bias: float = 0.1):
+    """Stage A of ``direct_lighting`` (K7a's plain version): returns
+    (origin, direction, t_max, att), the shadow ray of every point and,
+    where rng_sky is given, its cosine-lobe sky ray after them, stacked
+    along the first axis ((k * lead[0], *lead[1:], 3), k = 1 or 2), and
+    the light's attenuation (lead). t_max is 0 where `valid` is False and,
+    for the shadow ray, where att is not > 0 (stage B discards that
+    visibility)."""
+    ray_origin = p + n * bias
+    _, wi, t_max, att = fetch_light_properties(
+        light, p, n, rng2=rng_shadow, soft_shadows=rng_shadow is not None)
+    live = att > 0.0 if valid is None else valid & (att > 0.0)
+    origin, direction, t = [ray_origin], [wi], [torch.where(live, t_max, 0.0)]
+    if rng_sky is not None:
+        t_sky = torch.full(p.shape[:-1], 1e4, dtype=p.dtype, device=p.device)
+        origin.append(ray_origin)
+        direction.append(brdf_ops.sample_cosine_lobe(n, rng_sky))
+        t.append(t_sky if valid is None else torch.where(valid, t_sky, 0.0))
+    return torch.cat(origin), torch.cat(direction), torch.cat(t), att
 
-    visibility_fn(origin, dir, t_max) -> {0,1} replaces the inline ray
-    query (one trace for the light, one more for the sky ray).
-    throughput (...,3) scales both terms (a path's weight; ones when not
-    given). sky_radiance_fn(dir) -> (...,3) replaces the sky cubemap; with
-    it and rng_sky given, one cosine-sampled sky ray is added, not divided
-    by its pdf (the reference's own omission, kept for parity)."""
+
+def shade_combine_plain(light: Light, wo, n, f0, diffuse_color, roughness, att, direction,
+                        vis=None, throughput=None, sky_li=None):
+    """Stage B of ``direct_lighting`` (K7b's plain version): both BRDF
+    terms of every point from stage A's att and direction, the tracer's
+    vis in stage A's layout (None: no visibility) and, with a sky ray,
+    sky_li (lead, 3), the radiance of its direction."""
 
     def weighted(val):
         # T * val first, the JAX package's order; with no throughput the
         # multiply by ones is left out (it is exact)
         return val if throughput is None else throughput * val
 
-    ray_origin = p + n * ray_origin_bias
-    li, wi, t_max, att = fetch_light_properties(
-        light, p, n, rng2=rng_shadow, soft_shadows=rng_shadow is not None)
-    if visibility_fn is not None:
-        vis = visibility_fn(ray_origin, wi, t_max)
-        att = att * torch.where(att > 0.0, vis, 0.0)
+    k = direction.shape[0] // att.shape[0]
+    direction = direction.reshape((k,) + att.shape + (3,))
+    if vis is not None:
+        vis = vis.reshape((k,) + att.shape)
+        att = att * torch.where(att > 0.0, vis[0], 0.0)
+    li = light.color * light.intensity
+    wi = direction[0]
     wh = normalize(wo + wi)
     val = brdf_ops.evaluate_uber_brdf(diffuse_color, roughness, n, f0, wo, wh, wi)
     lo = weighted(val) * att[..., None] * li
-
-    if sky_radiance_fn is not None and rng_sky is not None:
-        wi_s = brdf_ops.sample_cosine_lobe(n, rng_sky)
-        li_s = sky_radiance_fn(wi_s)
-        if visibility_fn is not None:
-            t_sky = torch.full(p.shape[:-1], 1e4, dtype=p.dtype, device=p.device)
-            li_s = li_s * visibility_fn(ray_origin, wi_s, t_sky)[..., None]
+    if k == 2:
+        wi_s = direction[1]
+        li_s = sky_li if vis is None else sky_li * vis[1][..., None]
         wh_s = normalize(wo + wi_s)
         val_s = brdf_ops.evaluate_uber_brdf(diffuse_color, roughness, n, f0, wo, wh_s, wi_s)
         lo = lo + weighted(val_s) * li_s
     return lo
+
+
+def direct_lighting(light: Light, wo, n, p, f0, diffuse_color, roughness, *,
+                    visibility_fn: Optional[Callable] = None, throughput=None,
+                    rng_shadow=None, rng_sky=None,
+                    sky_radiance_fn: Optional[Callable] = None,
+                    ray_origin_bias: float = 0.1, valid=None):
+    """Reference direct_lighting (lighting.glsl:117-196), the program's
+    span ``direct_light``.
+
+    visibility_fn(origin, dir, t_max) -> {0,1} replaces the inline ray
+    queries: ONE call traces the shadow rays and, with a sky sample, the
+    sky rays stacked after them. throughput (...,3) scales both terms (a
+    path's weight; ones when not given). sky_radiance_fn(dir) -> (...,3)
+    replaces the sky cubemap; with it and rng_sky given, one
+    cosine-sampled sky ray is added, not divided by its pdf (the
+    reference's own omission, kept for parity). valid (...,) bool: where
+    False, no ray of the point searches anything (t_max = 0).
+
+    Two stages around the one visibility call: ``shade_rays_plain`` and
+    ``shade_combine_plain`` for CPU tensors, K7 (``ops/shade.py``) for
+    CUDA tensors, which evaluates a ``ProceduralSky``'s radiance itself
+    and takes any other sky's from its call."""
+    with profiler.span("direct_light"):
+        lead = tuple(p.shape[:-1])
+        N = p.numel() // 3
+        rng_sky = rng_sky if sky_radiance_fn is not None else None
+        k = 1 if rng_sky is None else 2
+        plain = kernels.on_cpu(p)
+        stage_a = shade_rays_plain if plain else shade.shade_rays
+        origin, direction, t_max, att = stage_a(light, p, n, rng_shadow, rng_sky, valid,
+                                                ray_origin_bias)
+        vis = None
+        if visibility_fn is not None:
+            req = (k * lead[0],) + lead[1:]
+            vis = visibility_fn(origin.reshape(req + (3,)), direction.reshape(req + (3,)),
+                                t_max.reshape(req))
+        sky = None if k == 1 or plain else shade.procedural_sky(sky_radiance_fn)
+        sky_li = None
+        if k == 2 and sky is None:
+            sky_li = sky_radiance_fn(direction.reshape((2,) + lead + (3,))[1])
+            profiler.count("sky_fn_points", N)
+        if plain:
+            return shade_combine_plain(light, wo, n, f0, diffuse_color, roughness, att,
+                                       direction, vis, throughput, sky_li)
+        profiler.count("shaded", N)
+        lo = shade.shade_combine(light, wo, n, f0, diffuse_color, roughness, att, direction,
+                                 vis, throughput, sky, sky_li)
+        return lo.reshape(lead + (3,))

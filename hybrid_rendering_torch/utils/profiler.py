@@ -143,19 +143,36 @@ def tracer_call(kind, batch):
     return _Span(kind, rays)
 
 
+def count(name: str, n: int) -> None:
+    """Add `n` to the counter `name` at the path of the innermost open span
+    (``""`` outside every span); nothing while tracing is off."""
+    if not (_enabled or _session._is_profiler_enabled):
+        return
+    stack = _stack()
+    path = stack[-1].path if stack else ""
+    with _lock:
+        totals = _counters.setdefault(name, {})
+        totals[path] = totals.get(path, 0) + n
+
+
 def table(record: dict, frames: int = 1) -> str:
     """The record of ``collect()`` as text, a frame over `frames`: calls,
-    host ms, self ms and rays by span path, in tree order."""
-    rays = record["counters"].get("rays", {})
+    host ms, self ms and each counter (``rays`` first) by span path, in
+    tree order."""
+    counters = record["counters"]
+    names = ["rays"] + sorted(c for c in counters if c != "rays")
+    widths = [max(10, len(c)) for c in names]
     lines = [f"spans (host wall a frame over {frames} frame(s); self = less the children's):",
-             f"  {'span':<40s} {'calls':>6s} {'ms':>9s} {'self ms':>9s} {'rays':>10s}"]
+             f"  {'span':<40s} {'calls':>6s} {'ms':>9s} {'self ms':>9s}"
+             + "".join(f" {c:>{w}s}" for c, w in zip(names, widths))]
     for path, row in record["spans"].items():
         name = "  " * path.count("/") + path.rsplit("/", 1)[-1]
         line = (f"  {name:<40s} {row['calls'] / frames:6.4g} "
                 f"{row['host_s'] * 1e3 / frames:9.3f} {row['self_s'] * 1e3 / frames:9.3f}")
-        if path in rays:
-            line += f" {rays[path] / frames:10.0f}"
-        lines.append(line)
+        for c, w in zip(names, widths):
+            v = counters.get(c, {}).get(path)
+            line += f" {'':>{w}s}" if v is None else f" {v / frames:{w}.0f}"
+        lines.append(line.rstrip())
     return "\n".join(lines)
 
 

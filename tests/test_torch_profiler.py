@@ -4,7 +4,8 @@ CPU, at 32x24 on the tiny scene of ``entry_torch``:
 - a hybrid frame and a path-traced sample with tracing on give the span
   tree of every pass and stage, self time never above inclusive time, and
   rays by site that add up to what a counting wrapper of the renderer's
-  tracers counts on the same frame (a sample: 9 requests of W x H);
+  tracers counts on the same frame (a sample: 3 requests of W x H and 3
+  of 2 W x H);
 - off, no span opens a ``torch.profiler.record_function`` range and
   nothing is recorded; under a torch.profiler session the spans are on;
 - spans nest per thread, and a sharded tracer counts a ray once."""
@@ -31,19 +32,19 @@ FRAME_TREE = {
         "shadows_ao.rays": {"visibility": {}},
         "shadows": {"temporal": {}, "atrous": {}},
         "ao": {"mips": {}, "temporal": {}, "blur": {}, "upsample": {}},
-        "ddgi.update": {"rays": {}, "trace": {"closest": {}}, "shade": {"visibility": {}},
-                        "update": {}},
+        "ddgi.update": {"rays": {}, "trace": {"closest": {}},
+                        "shade": {"direct_light": {"visibility": {}}}, "update": {}},
         "ddgi.sample": {},
         "ddgi.upsample": {},
-        "reflections": {"ray_trace": {"closest": {}, "visibility": {}}, "temporal": {},
-                        "atrous": {}, "upsample": {}},
+        "reflections": {"ray_trace": {"closest": {}, "direct_light": {"visibility": {}}},
+                        "temporal": {}, "atrous": {}, "upsample": {}},
         "deferred": {}, "taa": {}, "tonemap": {},
     },
     "camera": {},
 }
 SAMPLE_TREE = {
     "trace_sample": {"pt.rays": {}, "pt.closest": {"closest": {}}, "pt.env": {},
-                     "pt.direct": {"visibility": {}}, "pt.scatter": {}},
+                     "pt.direct": {"direct_light": {"visibility": {}}}, "pt.scatter": {}},
     "accumulate": {},
 }
 
@@ -135,20 +136,22 @@ def test_frame_and_sample_span_trees_and_rays(tiny, tracing):
         "render_frame/gbuffer/closest": W * H,
         "render_frame/shadows_ao.rays/visibility": W * H + (W // 2) * (H // 2),
         "render_frame/ddgi.update/trace/closest": probe_rays,
-        "render_frame/ddgi.update/shade/visibility": 2 * probe_rays,  # sun and sky
+        # the sun's and the sky's rays in one call
+        "render_frame/ddgi.update/shade/direct_light/visibility": 2 * probe_rays,
         "render_frame/reflections/ray_trace/closest": (W // 2) * (H // 2),
-        "render_frame/reflections/ray_trace/visibility": (W // 2) * (H // 2),
+        "render_frame/reflections/ray_trace/direct_light/visibility": (W // 2) * (H // 2),
     }
-    assert spans["render_frame/ddgi.update/shade/visibility"]["calls"] == 2
+    assert spans["render_frame/ddgi.update/shade/direct_light/visibility"]["calls"] == 1
     assert sum(rays.values()) == sum(frame_counts)
 
     pt_spans, pt_rays = pt_rec["spans"], pt_rec["counters"]["rays"]
     assert set(pt_spans) == _paths(SAMPLE_TREE)
     assert pt_spans["trace_sample/pt.closest"]["calls"] == 3  # one a bounce
     assert pt_spans["trace_sample/pt.scatter"]["calls"] == 2
-    calls = (pt_spans["trace_sample/pt.closest/closest"]["calls"]
-             + pt_spans["trace_sample/pt.direct/visibility"]["calls"])
-    assert calls == 9 and counts == [W * H] * 9
+    assert pt_spans["trace_sample/pt.closest/closest"]["calls"] == 3
+    # a bounce's shadow and sky rays in one call
+    assert pt_spans["trace_sample/pt.direct/direct_light/visibility"]["calls"] == 3
+    assert counts == [W * H, 2 * W * H] * 3
     assert sum(pt_rays.values()) == 9 * W * H
     text = profiler.table(rec)
     assert "reflections" in text and f"{W * H:10.0f}" in text
