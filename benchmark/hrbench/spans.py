@@ -4,10 +4,12 @@
 The program (``hybrid_rendering_torch/utils/profiler.py``) opens its spans
 while a torch.profiler session records, each an ``hr::<span path>`` range
 on the session's clock (``render_frame/reflections/ray_trace``), and keeps
-per span path its calls, host seconds and ``rays`` counter until its
+per span path its calls, host seconds and counters until its
 ``collect()``. The first reader that asks joins the two, once a run:
 
-  - ``spans`` and ``rays``: the program's record, by span path;
+  - ``spans``: the program's spans, by span path;
+  - ``counters``: every counter of the program (``rays``, ``shaded``,
+    ``sky_fn_points``, ...), by name and then by span path;
   - ``waits``: each synchronizing CUDA runtime call of the session
     (``SYNC_CALLS``), counted with the host ms it blocked, put down to the
     innermost program span open when it began (``""`` outside them all);
@@ -64,7 +66,7 @@ def _build(prof) -> Optional[dict]:
     own = mod.collect()
     if not own["spans"]:
         return None
-    return dict(spans=own["spans"], rays=own["counters"].get("rays", {}),
+    return dict(spans=own["spans"], counters=own["counters"],
                 **join(_rows(prof), set(own["spans"])))
 
 

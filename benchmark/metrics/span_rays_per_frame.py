@@ -6,5 +6,5 @@ from hrbench import spans
 
 def read(record):
     prog = spans.program(record)
-    n = sum(prog["rays"].values()) if prog else 0
+    n = sum(prog["counters"].get("rays", {}).values()) if prog else 0
     return n / record["frames"] if n else None

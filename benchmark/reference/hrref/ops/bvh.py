@@ -1,15 +1,22 @@
 """BVH build, the stackless skip-link walk, and the tracer interface of
 the plain reference.
 
-A frozen copy of the port's plain path (``ops/bvh.py``), kept apart so
-that the benchmark's reference does not move with the program. Only the
-plain PyTorch walk is here; the tree is this file's own Morton
-median-split build (``build_bvh``), not the program's binned-SAH tree, so
-the reference shares no acceleration structure with the program under
-test. The BVH is stored in preorder with skip links:
+Kept apart from the port so that the benchmark's reference does not move
+with the program. The tree is this file's own binned-SAH build in numpy
+(``build_bvh``), not the program's native builder, so the reference
+shares no acceleration structure with the program under test. The BVH
+is stored in preorder with skip links:
 
     next = node+1        on AABB hit of an internal node
     next = skip[node]    on miss / after a leaf
+
+The walk (``traverse``) is plain PyTorch. Its time goes to iterations
+times launches, not to arithmetic, so each iteration tests a leaf's
+triangles in one batch of tensor operations, keeps finished rays in its
+arrays until half of them have finished, and hands the last few rays to
+the brute-force tracer (``ops/brute.py``), which gives the same closest
+hit (up to the choice among triangles at an equal t) in a few tiles
+instead of the deepest ray's hundreds of iterations.
 """
 from __future__ import annotations
 
@@ -21,31 +28,75 @@ import torch
 from hrref.types import Hit, SceneArrays
 
 LEAF_SIZE = 4
+SAH_BINS = 16
+# ray-triangle pairs left when the walk hands over to brute force, by
+# device: a tile of brute force costs the card about as much as a few of
+# the walk's iterations, and the CPU many more
+BRUTE_PAIRS = {"cuda": 1 << 28, "cpu": 1 << 20}
 
 
 # ---------------------------------------------------------------------------
-# Build (host, numpy): Morton median split
+# Build (host, numpy): binned SAH, one level of the tree at a time
 # ---------------------------------------------------------------------------
 
-def _expand_bits(v: np.ndarray) -> np.ndarray:
-    """Spread 10 bits to every 3rd bit (for 30-bit Morton codes)."""
-    v = v.astype(np.uint64)
-    v = (v * 0x00010001) & 0xFF0000FF
-    v = (v * 0x00000101) & 0x0F00F00F
-    v = (v * 0x00000011) & 0xC30C30C3
-    v = (v * 0x00000005) & 0x49249249
-    return v
+
+def _half_area(lo, hi):
+    e = np.maximum(hi - lo, 0.0)
+    return e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] + e[..., 2] * e[..., 0]
 
 
-def morton3d(xyz01: np.ndarray) -> np.ndarray:
-    """xyz in [0,1]^3 -> 30-bit Morton codes. (N,3) -> (N,)"""
-    q = np.clip(xyz01 * 1024.0, 0.0, 1023.0).astype(np.uint32)
-    return ((_expand_bits(q[:, 0]) << 2) | (_expand_bits(q[:, 1]) << 1)
-            | _expand_bits(q[:, 2]))
+def _split_level(open_a, open_b, order, tlo, thi, cen, bins):
+    """One level of the build: every open node (a triangle range
+    [a, b) of `order`) split where the binned surface-area heuristic is
+    least, over the three axes' centroid bins; its triangles are
+    reordered in place, the left child's first. Returns each node's left
+    count and, for every triangle of the level in order, the range it
+    lies in."""
+    n = open_a.size
+    L = open_b - open_a
+    seg = np.repeat(np.arange(n), L)
+    starts = np.concatenate([[0], np.cumsum(L)[:-1]])
+    rank = np.arange(L.sum()) - starts[seg]
+    tris = order[open_a[seg] + rank]
+    c = cen[tris]
+    cmin = np.minimum.reduceat(c, starts, axis=0)
+    ext = np.maximum.reduceat(c, starts, axis=0) - cmin
+    scale = np.where(ext > 0, bins / np.where(ext > 0, ext, 1.0), 0.0).astype(np.float32)
+    b = np.clip(((c - cmin[seg]) * scale[seg]).astype(np.int64), 0, bins - 1)  # (m, 3)
+    key = ((seg[:, None] * 3 + np.arange(3)) * bins + b).reshape(-1)
+    blo = np.full((3, n * 3 * bins), np.inf, np.float32)
+    bhi = np.full((3, n * 3 * bins), -np.inf, np.float32)
+    tl, th = tlo[tris], thi[tris]
+    for j in range(3):  # 1-D ufunc.at runs far faster than on rows
+        np.minimum.at(blo[j], key, np.repeat(tl[:, j], 3))
+        np.maximum.at(bhi[j], key, np.repeat(th[:, j], 3))
+    blo = blo.T.reshape(n, 3, bins, 3)
+    bhi = bhi.T.reshape(n, 3, bins, 3)
+    cnt = np.bincount(key, minlength=n * 3 * bins).reshape(n, 3, bins)
+    llo, lhi = np.minimum.accumulate(blo, axis=2), np.maximum.accumulate(bhi, axis=2)
+    rlo = np.minimum.accumulate(blo[:, :, ::-1], axis=2)[:, :, ::-1]
+    rhi = np.maximum.accumulate(bhi[:, :, ::-1], axis=2)[:, :, ::-1]
+    lc = np.cumsum(cnt, axis=2)[:, :, :-1]
+    rc = L[:, None, None] - lc
+    cost = (_half_area(llo[:, :, :-1], lhi[:, :, :-1]) * lc
+            + _half_area(rlo[:, :, 1:], rhi[:, :, 1:]) * rc)
+    cost = np.where((lc > 0) & (rc > 0), cost, np.inf).reshape(n, -1)
+    best = np.argmin(cost, axis=1)
+    found = np.isfinite(cost[np.arange(n), best])
+    axis, k = best // (bins - 1), best % (bins - 1)
+    left = b[np.arange(b.shape[0]), axis[seg]] <= k[seg]
+    # every centroid in one bin: halves by position
+    left = np.where(found[seg], left, rank < (L // 2)[seg])
+    n_left = np.bincount(seg, weights=left, minlength=n).astype(np.int64)
+    before = np.cumsum(left) - left
+    left_before = before - before[starts][seg]
+    order[open_a[seg] + np.where(left, left_before, n_left[seg] + rank - left_before)] = tris
+    return n_left, seg, starts
 
 
-def build_bvh(tri_pos: np.ndarray, leaf_size: int = LEAF_SIZE):
-    """Morton-ordered median-split BVH in preorder with skip links.
+def build_bvh(tri_pos: np.ndarray, leaf_size: int = LEAF_SIZE, bins: int = SAH_BINS):
+    """Binned-SAH BVH in preorder with skip links, split until a leaf
+    holds at most `leaf_size` triangles.
 
     Returns (nodes_min (N,3) f32, nodes_max (N,3) f32,
              nodes_meta (N,3) i32 [first_tri, tri_count, skip_link],
@@ -53,44 +104,51 @@ def build_bvh(tri_pos: np.ndarray, leaf_size: int = LEAF_SIZE):
     tri_count == 0 marks internal nodes."""
     tri_pos = np.asarray(tri_pos, np.float32)
     T = tri_pos.shape[0]
-    centroids = tri_pos.mean(axis=1)
-    lo = centroids.min(axis=0)
-    hi = centroids.max(axis=0)
-    extent = np.maximum(hi - lo, 1e-8)
-    order = np.argsort(morton3d((centroids - lo) / extent), kind="stable").astype(np.int32)
-    tri_lo = tri_pos.min(axis=1)[order]
-    tri_hi = tri_pos.max(axis=1)[order]
-
-    nodes_min, nodes_max, nodes_meta = [], [], []
-    stack = [(0, T)]
-    while stack:  # push right before left => preorder
-        a, b = stack.pop()
-        nodes_min.append(tri_lo[a:b].min(axis=0))
-        nodes_max.append(tri_hi[a:b].max(axis=0))
-        if b - a <= leaf_size:
-            nodes_meta.append([a, b - a, 0])
-        else:
-            nodes_meta.append([a, 0, b])  # range end, replaced below
-            mid = (a + b) // 2
-            stack.append((mid, b))
-            stack.append((a, mid))
-
-    N = len(nodes_meta)
-    meta = np.asarray(nodes_meta, np.int64)
-    starts = meta[:, 0].copy()
-    ends = np.where(meta[:, 1] > 0, meta[:, 0] + meta[:, 1], meta[:, 2])
-    # skip[i] = next preorder node whose range starts at/after i's end
-    skip = np.full(N, N, np.int64)
-    pending = []
-    for i in range(N):
-        while pending and starts[i] >= ends[pending[-1]]:
-            skip[pending.pop()] = i
-        pending.append(i)
-    internal = meta[:, 1] == 0
-    meta[internal, 0] = 0
-    meta[:, 2] = skip
-    return (np.asarray(nodes_min, np.float32), np.asarray(nodes_max, np.float32),
-            meta.astype(np.int32), order)
+    tlo, thi = tri_pos.min(axis=1), tri_pos.max(axis=1)
+    cen = (tlo + thi) * 0.5
+    order = np.arange(T, dtype=np.int64)
+    cap = 2 * T + 1
+    first, end = np.zeros(cap, np.int64), np.zeros(cap, np.int64)
+    left_child = np.full(cap, -1, np.int64)
+    lo, hi = np.zeros((cap, 3), np.float32), np.zeros((cap, 3), np.float32)
+    first[0], end[0], lo[0], hi[0] = 0, T, tlo.min(axis=0), thi.max(axis=0)
+    levels = [np.array([0])]
+    count = 1
+    opened = levels[0][end[levels[0]] - first[levels[0]] > leaf_size]
+    while opened.size:
+        a, b = first[opened], end[opened]
+        n_left, seg, starts = _split_level(a, b, order, tlo, thi, cen, bins)
+        ids = count + np.arange(2 * opened.size)
+        count += ids.size
+        left_child[opened] = ids[0::2]
+        first[ids] = np.stack([a, a + n_left], 1).reshape(-1)
+        end[ids] = np.stack([a + n_left, b], 1).reshape(-1)
+        # the children's ranges tile the level's triangles in order
+        tris = order[a[seg] + np.arange(seg.size) - starts[seg]]
+        cuts = np.stack([starts, starts + n_left], 1).reshape(-1)
+        lo[ids] = np.minimum.reduceat(tlo[tris], cuts, axis=0)
+        hi[ids] = np.maximum.reduceat(thi[tris], cuts, axis=0)
+        levels.append(ids)
+        opened = ids[end[ids] - first[ids] > leaf_size]
+    N = count
+    # preorder: subtree sizes bottom up, then indices top down
+    size = np.ones(N, np.int64)
+    for ids in levels[::-1]:
+        p = ids[left_child[ids] >= 0]
+        size[p] = 1 + size[left_child[p]] + size[left_child[p] + 1]
+    pre = np.zeros(N, np.int64)
+    for ids in levels:
+        p = ids[left_child[ids] >= 0]
+        pre[left_child[p]] = pre[p] + 1
+        pre[left_child[p] + 1] = pre[p] + 1 + size[left_child[p]]
+    leaf = left_child[:N] < 0
+    nodes_min, nodes_max = np.empty((N, 3), np.float32), np.empty((N, 3), np.float32)
+    nodes_min[pre], nodes_max[pre] = lo[:N], hi[:N]
+    meta = np.zeros((N, 3), np.int64)
+    meta[pre, 0] = np.where(leaf, first[:N], 0)
+    meta[pre, 1] = np.where(leaf, end[:N] - first[:N], 0)
+    meta[pre, 2] = pre + size
+    return nodes_min, nodes_max, meta.astype(np.int32), order.astype(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -100,12 +158,16 @@ def build_bvh(tri_pos: np.ndarray, leaf_size: int = LEAF_SIZE):
 
 @dataclasses.dataclass
 class TraceScene:
-    """What the plain walk reads: the BVH, the leaf-ordered triangles and
-    the (T, 24) attribute table."""
+    """What the walk reads: the BVH with one node appended, where
+    finished rays wait (its skip link leads to itself), each node's leaf triangles as (v0, v1 - v0, v2 - v0) rows
+    padded to ``LEAF_SIZE`` with zero triangles, which nothing hits,
+    their triangle ids, the triangles and the (T, 24) attribute table."""
 
-    nodes_min: torch.Tensor  # (N,3) f32
-    nodes_max: torch.Tensor  # (N,3) f32
-    nodes_meta: torch.Tensor  # (N,3) i32
+    nodes_min: torch.Tensor  # (N+1,3) f32
+    nodes_max: torch.Tensor  # (N+1,3) f32
+    nodes_meta: torch.Tensor  # (N+1,3) i64 [first, count, skip]
+    leaf_tris: torch.Tensor  # (N+1,LEAF_SIZE,3,3) f32
+    leaf_ids: torch.Tensor  # (N+1,LEAF_SIZE) i64, -1 for padding
     tri_pos: torch.Tensor  # (T,3,3) f32
     attrs: torch.Tensor  # (T,24) f32
 
@@ -131,10 +193,21 @@ def attr_table(scene: SceneArrays) -> torch.Tensor:
 def make_trace_scene(scene: SceneArrays) -> TraceScene:
     if scene.bvh_nodes_min is None:
         raise ValueError("scene was built without a BVH (use_bvh=False)")
+    dev = scene.tri_pos.device
+    meta = scene.bvh_nodes_meta.to(torch.int64)
+    N = meta.shape[0]
+    meta = torch.cat([meta, torch.tensor([[0, 0, N]], device=dev)])
+    ids = meta[:, :1] + torch.arange(LEAF_SIZE, device=dev)
+    ids = torch.where(torch.arange(LEAF_SIZE, device=dev) < meta[:, 1:2], ids, -1)
+    tp = scene.tri_pos
+    rows = torch.stack([tp[:, 0], tp[:, 1] - tp[:, 0], tp[:, 2] - tp[:, 0]], dim=1)
+    leaf_tris = torch.where((ids >= 0)[:, :, None, None], rows[ids.clamp(min=0)], 0.0)
+    wait = torch.zeros((1, 3), device=dev)
     return TraceScene(
-        nodes_min=scene.bvh_nodes_min.contiguous(), nodes_max=scene.bvh_nodes_max.contiguous(),
-        nodes_meta=scene.bvh_nodes_meta.to(torch.int32).contiguous(),
-        tri_pos=scene.tri_pos.contiguous(), attrs=attr_table(scene))
+        nodes_min=torch.cat([scene.bvh_nodes_min, wait]).contiguous(),
+        nodes_max=torch.cat([scene.bvh_nodes_max, wait]).contiguous(),
+        nodes_meta=meta.contiguous(), leaf_tris=leaf_tris.contiguous(),
+        leaf_ids=ids.contiguous(), tri_pos=tp.contiguous(), attrs=attr_table(scene))
 
 
 # ---------------------------------------------------------------------------
@@ -149,20 +222,22 @@ def _safe_inv(direction):
 
 
 def _dot(a, b):
-    # written out in a fixed rounding order
-    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+    # written out in a fixed rounding order: (a0 b0 + a1 b1) + a2 b2
+    p = a * b
+    return p[..., 0] + p[..., 1] + p[..., 2]
+
+
+_YZX, _ZXY = [1, 2, 0], [2, 0, 1]
 
 
 def _cross(a, b):
-    return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
-                        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
-                        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], dim=1)
+    return a[..., _YZX] * b[..., _ZXY] - a[..., _ZXY] * b[..., _YZX]
 
 
-def _moller(o, d, v0, v1, v2, t_min):
-    """Moller-Trumbore for one triangle per ray (all (R,3))."""
-    e1 = v1 - v0
-    e2 = v2 - v0
+def _moller(o, d, v0, e1, e2, t_min):
+    """Moller-Trumbore on broadcast (..., 3) operands, with
+    ``brute._tests``'s arithmetic: every product and sum rounded alike,
+    so that both give the same t, u and v."""
     pvec = _cross(d, e2)
     det = _dot(pvec, e1)
     det_ok = torch.abs(det) > 1e-9
@@ -178,62 +253,76 @@ def _moller(o, d, v0, v1, v2, t_min):
 
 def traverse(ts: TraceScene, origin, direction, t_max, t_min=1e-3,
              any_hit=False) -> Hit:
-    """Stackless skip-link walk over (R,3) rays with per-ray t_max (R,).
-    Semantics of the JAX ``traverse``: inclusive slab test clipped to
-    [t_min, best t]; leaf lanes tested in order with a strict ``t < best``
-    so the first of equal minima wins; with any_hit a ray stops after the
-    first leaf that yields a hit. Rays with t_max <= t_min hit nothing
-    (visibility 1)."""
+    """Stackless skip-link walk over (R,3) rays with per-ray t_max (R,):
+    inclusive slab test clipped to [t_min, best t]; a leaf's triangles
+    tested together, the first of equal minima in the leaf winning a
+    strict ``t < best``; with any_hit a ray stops after the first leaf
+    that yields a hit. Rays with t_max <= t_min hit nothing (visibility
+    1). Once the rays still walking times the triangles come to no more
+    than the device's ``BRUTE_PAIRS``, those rays are traced by brute force
+    from their best t so far."""
+    from hrref.ops import brute  # brute imports this module
+
     R = origin.shape[0]
     dev = origin.device
-    N = ts.nodes_min.shape[0]
-    T = ts.tri_pos.shape[0]
-    inv_dir = _safe_inv(direction)
-    node = torch.zeros(R, dtype=torch.int64, device=dev)
-    best_t = t_max.to(origin.dtype).clone()
-    best_id = torch.full((R,), -1, dtype=torch.int64, device=dev)
-    best_u = torch.zeros(R, dtype=origin.dtype, device=dev)
-    best_v = torch.zeros(R, dtype=origin.dtype, device=dev)
-    meta_all = ts.nodes_meta.to(torch.int64)
+    done = ts.nodes_meta.shape[0] - 1  # the appended node
+    hand_over = BRUTE_PAIRS.get(dev.type, 0) // ts.tri_pos.shape[0]
+    out_t = t_max.to(origin.dtype).clone()
+    out_id = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    out_u = torch.zeros(R, dtype=origin.dtype, device=dev)
+    out_v = torch.zeros(R, dtype=origin.dtype, device=dev)
 
-    live = torch.arange(R, device=dev)  # rays whose pointer is still < N
-    while live.numel():
-        nid = node[live]
-        o, d, inv = origin[live], direction[live], inv_dir[live]
-        bt = best_t[live]
-        meta = meta_all[nid]
-        first, count, skip = meta[:, 0], meta[:, 1], meta[:, 2]
-        t0 = (ts.nodes_min[nid] - o) * inv
-        t1 = (ts.nodes_max[nid] - o) * inv
+    ray = torch.nonzero(out_t > t_min).squeeze(1)
+    o, d = origin[ray], direction[ray]
+    inv = _safe_inv(d)
+    bt, bid, bu, bv = out_t[ray], out_id[ray], out_u[ray], out_v[ray]
+    node = torch.zeros_like(ray)
+    walking = ray.numel()
+    while walking:
+        meta = ts.nodes_meta[node]
+        t0 = (ts.nodes_min[node] - o) * inv
+        t1 = (ts.nodes_max[node] - o) * inv
         tnear = torch.clamp(torch.minimum(t0, t1).amax(dim=1), min=t_min)
         tfar = torch.minimum(torch.maximum(t0, t1).amin(dim=1), bt)
         hit_box = tnear <= tfar
-        is_leaf = count > 0
+        is_leaf = meta[:, 1] > 0
 
         sel = torch.nonzero(hit_box & is_leaf).squeeze(1)
         if sel.numel():
-            rays = live[sel]
-            o_s, d_s, first_s, count_s = o[sel], d[sel], first[sel], count[sel]
-            cur_t, cur_id = bt[sel], best_id[rays]
-            cur_u, cur_v = best_u[rays], best_v[rays]
-            for k in range(LEAF_SIZE):
-                idx = torch.clamp(first_s + k, 0, T - 1)
-                tri = ts.tri_pos[idx]
-                t, u, v, ok = _moller(o_s, d_s, tri[:, 0], tri[:, 1], tri[:, 2], t_min)
-                ok = ok & (k < count_s) & (t < cur_t)
-                cur_t = torch.where(ok, t, cur_t)
-                cur_id = torch.where(ok, idx, cur_id)
-                cur_u = torch.where(ok, u, cur_u)
-                cur_v = torch.where(ok, v, cur_v)
-            best_t[rays], best_id[rays] = cur_t, cur_id
-            best_u[rays], best_v[rays] = cur_u, cur_v
+            tri = ts.leaf_tris[node[sel]]  # (S, LEAF_SIZE, 3, 3)
+            t, u, v, ok = _moller(o[sel, None], d[sel, None], tri[:, :, 0], tri[:, :, 1],
+                                  tri[:, :, 2], t_min)
+            cur = bt[sel]
+            t = torch.where(ok & (t < cur[:, None]), t, torch.full_like(t, float("inf")))
+            k = torch.argmin(t, dim=1, keepdim=True)  # the first of equal minima
+            tk = t.gather(1, k).squeeze(1)
+            better = tk < cur
+            bt[sel] = torch.where(better, tk, cur)
+            bid[sel] = torch.where(better, ts.leaf_ids[node[sel]].gather(1, k).squeeze(1),
+                                   bid[sel])
+            bu[sel] = torch.where(better, u.gather(1, k).squeeze(1), bu[sel])
+            bv[sel] = torch.where(better, v.gather(1, k).squeeze(1), bv[sel])
 
-        nxt = torch.where(hit_box & ~is_leaf, nid + 1, skip)
+        node = torch.where(hit_box & ~is_leaf, node + 1, meta[:, 2])
         if any_hit:
-            nxt = torch.where(best_id[live] >= 0, N, nxt)
-        node[live] = nxt
-        live = live[nxt < N]
-    return Hit(t=best_t, tri_id=best_id.to(torch.int32), u=best_u, v=best_v)
+            node = torch.where(bid >= 0, done, node)
+        node = torch.clamp(node, max=done)  # a waiting ray's node + 1 lies past the end
+        left = node < done
+        walking = int(left.sum())
+        if walking <= hand_over or 2 * walking <= node.numel():
+            out_t[ray], out_id[ray], out_u[ray], out_v[ray] = bt, bid, bu, bv
+            keep = torch.nonzero(left).squeeze(1)
+            ray, o, d, inv, node = ray[keep], o[keep], d[keep], inv[keep], node[keep]
+            bt, bid, bu, bv = bt[keep], bid[keep], bu[keep], bv[keep]
+            if 0 < walking <= hand_over:
+                hit = brute.closest_hit(ts.tri_pos, o, d, bt, t_min)
+                found = hit.valid
+                out_t[ray] = torch.where(found, hit.t, bt)
+                out_id[ray] = torch.where(found, hit.tri_id.to(torch.int64), bid)
+                out_u[ray] = torch.where(found, hit.u, bu)
+                out_v[ray] = torch.where(found, hit.v, bv)
+                break
+    return Hit(t=out_t, tri_id=out_id.to(torch.int32), u=out_u, v=out_v)
 
 
 def closest_hit_attrs_plain(ts: TraceScene, origin, direction, t_max, t_min=1e-3):

@@ -3,8 +3,8 @@
 A frozen copy of the port's ``scene/build.py``: the scene compiles once on
 the host (numpy) to a world-space triangle soup with per-triangle material /
 mesh-id arrays, a BVH and a texture atlas, permuted into BVH leaf order.
-The BVH is the Morton build of ``ops/bvh.py`` (the port builds a
-binned-SAH tree natively). The result lives on the
+The BVH is the numpy binned-SAH build of ``ops/bvh.py`` (the port
+builds its own tree natively). The result lives on the
 CPU; ``SceneArrays.to(device)`` moves it to the card.
 """
 from __future__ import annotations
@@ -163,7 +163,7 @@ class SceneBuilder:
 
         bvh_kw = {}
         if use_bvh:
-            # the Morton median-split build: a tree of the reference's own
+            # the numpy binned-SAH build: a tree of the reference's own
             from hrref.ops import bvh as bvh_mod
 
             built = bvh_mod.build_bvh(tri_pos)

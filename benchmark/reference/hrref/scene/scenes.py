@@ -2,12 +2,18 @@
 
 Same geometry, materials, lights and cameras as
 ``hybrid_rendering_tpu/scene/scenes.py``, all seven of its scenes, built
-from the same seeds so that both packages give equal arrays. An unknown
-name raises ``KeyError``.
+from the same seeds so that both packages give equal arrays. A scene not
+among them is looked up as a file of its own, ``scene/extra/<name>.py``,
+whose ``build(use_bvh=True)`` makes it: a configuration with a new scene
+brings the reference's copy of it as a new file. A name found in neither
+raises ``KeyError``.
 
 Every factory returns (SceneArrays on the CPU, default Light, camera kwargs).
 """
 from __future__ import annotations
+
+import importlib.util
+import os
 
 import numpy as np
 
@@ -325,7 +331,23 @@ FACTORIES = {
 }
 
 
+EXTRA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "extra")
+
+
+def _extra(name: str):
+    """The ``build`` of ``EXTRA_DIR/<name>.py``, or None."""
+    path = os.path.join(EXTRA_DIR, f"{name}.py")
+    if not name.isidentifier() or not os.path.exists(path):
+        return None
+    spec = importlib.util.spec_from_file_location(f"hrref.scene.extra.{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.build
+
+
 def load_scene(name: str, use_bvh: bool = True):
-    if name not in FACTORIES:
-        raise KeyError(f"unknown scene {name!r}; have {sorted(FACTORIES)}")
-    return FACTORIES[name](use_bvh=use_bvh)
+    factory = FACTORIES.get(name) or _extra(name)
+    if factory is None:
+        raise KeyError(f"unknown scene {name!r}; have {sorted(FACTORIES)} and no "
+                       f"{os.path.join(EXTRA_DIR, name + '.py')}")
+    return factory(use_bvh=use_bvh)

@@ -3,10 +3,14 @@ the control and each fault a cell can have make it false.
 
 The runs go through the unchanged harness (``runner.run``) with the look
 for a card skipped, on a root of their own that holds a small copy of
-each cell: its configuration at 64x48 (the path tracer 32x24, on
-shadows_test's scene) with few probes, its mix with few warm frames and
-early checked frames, its limits as committed. The faults are planted in
-the program underneath:
+each cell of ``BENCHMARK.json``: what the copy changes in the cell's
+configuration and mix is data, ``benchmark/small/<cell>.json``
+(``{"config": {...}, "mix": {...}}``: a small image, few probes, few warm
+frames, early checked frames), its limits are as committed. Every cell
+with a small file is run; a cell without one fails
+``test_every_cell_has_a_small_copy`` alone. What a fault or a check does
+is chosen by the cell's frame kind (``benchmark/frames/<kind>.py``), not
+by its name. The faults are planted in the program underneath:
   - a step that returns its state unchanged;
   - half of a batch left out, the mean taken over the rest: every
     visibility request answers its second half with the first half's mean;
@@ -24,19 +28,28 @@ import torch
 
 from hrbench import cells, program, runner
 
-FLY = "shadows_test-1080p.fly"
-PATH = "sponza_scan-1080p.pathtrace"
-# what the small copies change, by cell: (configuration, mix)
-SMALL = {
-    FLY: ({"width": 64, "height": 48, "ddgi": {"probe_distance": 16.0, "rays_per_probe": 32}},
-          {"warm_frames": 3, "check_frames": {"start": True, "window_picks": [[0, 2]]}}),
-    PATH: ({"width": 32, "height": 24, "scene": "shadows_test",
-            "camera_path": [{"eye": [14.0, 6.0, 16.0], "target": [0.0, 2.0, 0.0], "time": 0.0},
-                            {"eye": [-16.0, 6.0, 2.0], "target": [0.0, 2.0, 0.0], "time": 4.0}]},
-           {"warm_frames": 2, "samples_per_view": 3, "check_pixels": 300,
-            "check_frames": {"start": True, "window_picks": [[0, 2], [2, 4]]}}),
-}
+SMALL_DIR = os.path.join(cells.BENCH_DIR, "small")
 SEED = 2**31 + 11
+
+
+def _bench() -> dict:
+    with open(os.path.join(cells.ROOT, "BENCHMARK.json")) as f:
+        return json.load(f)
+
+
+WORKLOADS = [w["name"] for w in _bench()["workloads"]]
+SMALL = [w for w in WORKLOADS if os.path.exists(os.path.join(SMALL_DIR, f"{w}.json"))]
+
+
+def kind_of(workload: str) -> str:
+    """The frame kind a cell's mix names."""
+    return cells.load(workload).mix["frames"]
+
+
+def small_copy(workload: str) -> dict:
+    """What a cell's small copy changes: ``{"config": {...}, "mix": {...}}``."""
+    with open(os.path.join(SMALL_DIR, f"{workload}.json")) as f:
+        return json.load(f)
 
 
 def _over(base: dict, over: dict) -> dict:
@@ -46,26 +59,38 @@ def _over(base: dict, over: dict) -> dict:
     return out
 
 
+def test_every_cell_has_a_small_copy():
+    missing = sorted(set(WORKLOADS) - set(SMALL))
+    assert not missing, f"no benchmark/small/<cell>.json for {missing}"
+
+
 @pytest.fixture(scope="module")
 def small_root(tmp_path_factory):
-    """A checkout's data at a small size: ``BENCHMARK.json`` and the
-    cells' configuration, mix and limits files."""
+    """A checkout's data at a small size: a ``BENCHMARK.json`` whose cells
+    each read a configuration and a mix of their own (cells that share a
+    configuration or a mix may shrink it differently), those files, and
+    the cells' limits as committed."""
     root = tmp_path_factory.mktemp("small")
     data = root / cells.BENCH_NAME
     for sub in ("configs", "traffic", "limits"):
         (data / sub).mkdir(parents=True)
-    with open(os.path.join(cells.ROOT, "BENCHMARK.json")) as f:
-        bench = json.load(f)
+    bench = _bench()
     configs = {c["name"]: c for c in bench["configs"]}
+    small_configs, small_workloads = [], []
     for w in bench["workloads"]:
+        if w["name"] not in SMALL:
+            continue
         cell = cells.load(w["name"])
-        cfg_over, mix_over = SMALL[w["name"]]
-        path = configs[w["config"]]["file"]
-        (root / path).write_text(json.dumps(_over(cell.config, cfg_over)))
-        (data / "traffic" / f"{w['traffic']}.json").write_text(
-            json.dumps(_over(cell.mix, mix_over)))
+        over = small_copy(w["name"])
+        path = f"{cells.BENCH_NAME}/configs/{w['name']}.json"
+        (root / path).write_text(json.dumps(_over(cell.config, over.get("config", {}))))
+        (data / "traffic" / f"{w['name']}.json").write_text(
+            json.dumps(_over(cell.mix, over.get("mix", {}))))
         shutil.copy(os.path.join(cells.BENCH_DIR, "limits", f"{w['name']}.json"),
                     data / "limits")
+        small_configs.append(dict(configs[w["config"]], name=w["name"], file=path))
+        small_workloads.append(dict(w, config=w["name"], traffic=w["name"]))
+    bench.update(configs=small_configs, workloads=small_workloads)
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return str(root)
 
@@ -82,7 +107,7 @@ def small_run(root, workload, control=False, seconds=0.5):
     return runner.run(workload, SEED, seconds, False, device="cpu", root=root, control=control)
 
 
-@pytest.mark.parametrize("workload", [FLY, PATH])
+@pytest.mark.parametrize("workload", SMALL)
 def test_a_sound_run_is_correct_and_its_line_has_the_keys(small_root, workload):
     res = small_run(small_root, workload)
     assert res["correct"] is True and res["failed"] == 0
@@ -93,7 +118,7 @@ def test_a_sound_run_is_correct_and_its_line_has_the_keys(small_root, workload):
     assert {"platform", "kind", "count", "memory_peak_bytes"} <= set(res["device"])
     assert all(c["value"] <= c["limit"] for c in res["checks"].values())
     # the start and every seeded pick were checked
-    n_picks = len(SMALL[workload][1]["check_frames"]["window_picks"])
+    n_picks = len(cells.load(workload, small_root).mix["check_frames"]["window_picks"])
     assert len(res["checked_frames"]) == 1 + n_picks and res["checked_frames"][0] == 0
 
 
@@ -125,13 +150,17 @@ def _static_buffers(monkeypatch):
     monkeypatch.setattr(HybridRenderer, "render_frame", static)
 
 
-def test_a_state_updated_in_place_is_still_correct(small_root, monkeypatch):
+HYBRID = [w for w in SMALL if kind_of(w) == "hybrid"]
+
+
+@pytest.mark.parametrize("workload", HYBRID)
+def test_a_state_updated_in_place_is_still_correct(small_root, monkeypatch, workload):
     _static_buffers(monkeypatch)
-    res = small_run(small_root, FLY)
+    res = small_run(small_root, workload)
     assert res["correct"] is True, res["checks"]
 
 
-@pytest.mark.parametrize("workload", [FLY, PATH])
+@pytest.mark.parametrize("workload", SMALL)
 def test_the_control_is_not_correct(small_root, workload):
     res = small_run(small_root, workload, control=True)
     assert res["correct"] is False
@@ -139,7 +168,7 @@ def test_the_control_is_not_correct(small_root, workload):
 
 
 def _state_unchanged(monkeypatch, workload):
-    if workload == FLY:
+    if kind_of(workload) == "hybrid":
         from hybrid_rendering_torch.models.renderer import HybridRenderer
 
         orig = HybridRenderer.render_frame
@@ -203,7 +232,7 @@ FAULTS = {"state_unchanged": _state_unchanged, "half_batch": _half_batch,
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("workload", [FLY, PATH])
+@pytest.mark.parametrize("workload", SMALL)
 def test_a_broken_timed_path_is_not_correct(small_root, monkeypatch, workload, fault):
     FAULTS[fault](monkeypatch, workload)
     res = small_run(small_root, workload)
@@ -214,7 +243,7 @@ def test_a_broken_timed_path_is_not_correct(small_root, monkeypatch, workload, f
 def test_the_first_cell_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    res = runner.run(FLY, SEED, 3.0, False, device="cuda")
+    res = runner.run(WORKLOADS[0], SEED, 3.0, False, device="cuda")
     assert res["correct"] is True, res["checks"]
-    res = runner.run(FLY, SEED + 1, 3.0, False, device="cuda", control=True)
+    res = runner.run(WORKLOADS[0], SEED + 1, 3.0, False, device="cuda", control=True)
     assert res["correct"] is False, res["checks"]

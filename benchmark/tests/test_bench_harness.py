@@ -24,11 +24,14 @@ def bench():
 def test_cell_parts_are_found_by_name(workload):
     cell = cells.load(workload)
     assert cell.config["camera_path"]
-    # the tail is end to end where it holds a bound, per layer where not
+    # every cell has its tail per layer; end to end only where it is listed
+    # under its bound
     e2e = {m["name"] for m in cell.end_to_end}
     per_layer = {m["name"] for m in cell.per_layer}
     assert e2e - {"frame_ms_p95"} == {"frame_ms", "setup_s"}
-    assert ("frame_ms_p95" in e2e) != ("frame_interval_p95_ms" in per_layer)
+    assert "frame_interval_p95_ms" in per_layer
+    listed = {m["name"]: m.get("workloads") for m in bench()["end_to_end"]}
+    assert ("frame_ms_p95" in e2e) == (workload in (listed["frame_ms_p95"] or []))
     for m in cell.per_layer:
         assert callable(cells.reader(m["name"]))
     kind = cells.frames(cell.mix["frames"])
@@ -39,6 +42,9 @@ def test_cell_parts_are_found_by_name(workload):
 
 def test_every_metric_has_a_reader_and_every_config_its_file():
     b = bench()
+    cell_names = {w["name"] for w in b["workloads"]}
+    for m in b["per_layer"] + b["end_to_end"]:
+        assert set(m.get("workloads", [])) <= cell_names, m["name"]
     for m in b["per_layer"]:
         assert os.path.exists(os.path.join(BENCH, "metrics", m["name"] + ".py"))
     for c in b["configs"]:

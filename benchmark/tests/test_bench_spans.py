@@ -1,13 +1,15 @@
 """The readers of the program's own spans (``hrbench/spans.py`` and the
 ``span_*`` and ``wait_ms_per_frame`` metrics): waits and idle time put
 down to the innermost program span on made-up session rows, each reader
-on a made-up record and nothing without the program's record, and a
-traced run of each small cell on the CPU through the unchanged harness."""
+on a made-up record and nothing without the program's record, every
+program counter carried into the record, and a traced run of each small
+cell on the CPU through the unchanged harness."""
 import pytest
 import torch
 
 from hrbench import cells, runner, spans
-from test_bench_correct import FLY, PATH, SEED, few_threads, small_root  # noqa: F401
+from test_bench_correct import SEED, SMALL, few_threads, kind_of, small_root  # noqa: F401
+from test_bench_harness import _Event, _fake_prof
 
 MS = 1_000_000  # ns
 
@@ -75,7 +77,8 @@ def _record(program="default"):
                       "render_frame/reflections": {"calls": 4, "host_s": 0.08, "self_s": 0.0},
                       "render_frame/ddgi.update": {"calls": 4, "host_s": 0.04, "self_s": 0.0},
                       "render_frame/ddgi.sample": {"calls": 4, "host_s": 0.008, "self_s": 0.0}},
-            "rays": {"render_frame/gbuffer/closest": 4000, "render_frame/ao/visibility": 400},
+            "counters": {"rays": {"render_frame/gbuffer/closest": 4000,
+                                  "render_frame/ao/visibility": 400}},
             "waits": {"render_frame": {"count": 8, "ms": 6.0}, "": {"count": 4, "ms": 100.0}},
             "idle_s": {"render_frame": 0.1}}
     if program is not None:
@@ -96,11 +99,35 @@ def test_span_readers_return_nothing_without_the_program(name):
     assert cells.reader(name)(_record(program=None)) is None  # no session to read here
     assert cells.reader(name)({"frames": 4, "program": None}) is None
     no_waits = _record()
-    no_waits["program"].update(waits=None, spans={}, rays={})
+    no_waits["program"].update(waits=None, spans={}, counters={})
     assert cells.reader(name)(no_waits) is None
 
 
-@pytest.mark.parametrize("workload", [FLY, PATH])
+def test_every_program_counter_reaches_the_record():
+    """``shaded`` (points K7 shaded, counted on the card only) and
+    ``sky_fn_points`` arrive in the record's ``counters`` by name and span
+    path, beside ``rays``, which the span readers read there."""
+    from hybrid_rendering_torch.utils import profiler
+
+    profiler.collect()
+    profiler.enable()
+    try:
+        with profiler.span("trace_sample"):
+            with profiler.span("pt.direct"):
+                profiler.count("shaded", 12)
+                profiler.count("sky_fn_points", 5)
+                profiler.count("rays", 24)
+    finally:
+        profiler.disable()
+    dev = {True: torch.autograd.DeviceType.CUDA, False: torch.autograd.DeviceType.CPU}
+    got = spans._build(_fake_prof([_Event(n, dev[card], a, b) for n, card, a, b in _rows()]))
+    path = "trace_sample/pt.direct"
+    assert got["counters"] == {"shaded": {path: 12}, "sky_fn_points": {path: 5},
+                               "rays": {path: 24}}
+    assert cells.reader("span_rays_per_frame")({"frames": 4, "program": got}) == 6.0
+
+
+@pytest.mark.parametrize("workload", SMALL)
 def test_a_traced_run_reads_the_program_spans(small_root, workload, monkeypatch):  # noqa: F811
     """The harness's traced section as it is, on the CPU (where PyTorch has
     no sync debug mode to set): the program's rays equal the benchmark's
@@ -113,9 +140,11 @@ def test_a_traced_run_reads_the_program_spans(small_root, workload, monkeypatch)
     assert "wait_ms_per_frame" not in m
     prog = res["trace_record"]["program"]
     roots = {p for p in prog["spans"] if "/" not in p}
-    assert roots == ({"camera", "render_frame"} if workload == FLY
-                     else {"trace_sample", "accumulate"})
-    if workload == FLY:
+    hybrid = kind_of(workload) == "hybrid"
+    assert roots == ({"camera", "render_frame"} if hybrid else {"trace_sample", "accumulate"})
+    # the plain path calls the sky for its sky samples; K7 alone counts `shaded`
+    assert sum(prog["counters"]["sky_fn_points"].values()) > 0
+    if hybrid:
         assert m["pass_ms.reflections"] <= m["span_ms.reflections"]
         assert m["pass_ms.ddgi"] <= m["span_ms.ddgi"]
     assert sum(prog["idle_s"].values()) > 0
