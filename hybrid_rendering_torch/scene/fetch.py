@@ -11,6 +11,11 @@ checked against. Both sample the atlas for the albedo, normal,
 roughness, metallic and emissive maps the scene's materials use; which
 maps those are was decided on the host when the material table was made
 (``Material.maps``), so no fetch reads a device value back.
+
+Where the scene has an atlas, the maps a fetch samples are one
+``sample_atlas`` call, the maps stacked ahead of the lanes, inside the span
+``material`` (``utils/profiler.py``); every map adds its lanes to the
+counter ``material_samples``. An untextured scene opens no span.
 """
 from __future__ import annotations
 
@@ -20,7 +25,31 @@ import torch
 
 from hybrid_rendering_torch.ops.math3d import cross, dot3, normalize, normalize3
 from hybrid_rendering_torch.scene.textures import sample_atlas
-from hybrid_rendering_torch.types import Hit, SceneArrays, Surface
+from hybrid_rendering_torch.types import MAP_COLUMNS, Hit, SceneArrays, Surface
+from hybrid_rendering_torch.utils import profiler
+
+
+def _maps_to_sample(scene: SceneArrays):
+    """The map columns a fetch samples: those some material uses; the
+    albedo's alone where the table has no normal-map column."""
+    mats = scene.materials
+    if scene.atlas is None:
+        return ()
+    names = MAP_COLUMNS if mats.normal_tex is not None else ("albedo_tex",)
+    return tuple(n for n in names if n in mats.maps)
+
+
+def _sample_maps(scene: SceneArrays, names, mat_id, uv, valid):
+    """The maps `names` at each lane as one ``sample_atlas`` call over the
+    maps stacked ahead of the lanes: {name: (texture index, texel (..., 4))}.
+    Each map's lanes count as ``material_samples``."""
+    mats = scene.materials
+    idx = torch.stack([_mat_int_col(getattr(mats, n), mat_id) for n in names])
+    profiler.count("material_samples", idx.numel())
+    k = len(names)
+    tex = sample_atlas(scene.atlas, idx, uv.expand(k, *uv.shape),
+                       valid=valid.expand(k, *valid.shape))
+    return {n: (idx[j], tex[j]) for j, n in enumerate(names)}
 
 
 def _orient(normal, geo_n, direction):
@@ -51,7 +80,6 @@ def surface_from_attrs(scene: SceneArrays, origin, direction, hit: Hit,
     mesh_id = torch.round(attrs[..., 16]).to(torch.int32)
     normal, geo_n, frontface = _orient(normal, attrs[..., 17:20], direction)
     albedo, roughness, metallic, emissive = _materials(scene, mat_id)
-    albedo = _apply_albedo_texture(scene, albedo, mat_id, uv, valid)
     surf = Surface(
         position=origin + hit.t[..., None] * direction,
         normal=normal, geo_normal=geo_n, uv=uv, albedo=albedo,
@@ -68,17 +96,6 @@ def _mat_int_col(col, mat_id):
     return col[mat_id.to(torch.int64)]
 
 
-def _apply_albedo_texture(scene: SceneArrays, albedo, mat_id, uv, valid):
-    """albedo *= the albedo map's texel (glTF factor x texture; reference
-    fetch_albedo, scene_descriptor_set.glsl:180-196). Unchanged where no
-    material has an albedo map."""
-    mats = scene.materials
-    if scene.atlas is None or "albedo_tex" not in mats.maps:
-        return albedo
-    tex = sample_atlas(scene.atlas, _mat_int_col(mats.albedo_tex, mat_id), uv, valid=valid)
-    return albedo * tex[..., :3]
-
-
 def _select_channel(tex, channel, mat_id):
     """Per-material texel channel (texture_indices1.zw,
     scene_descriptor_set.glsl:204-218); a selector outside 1..3 reads
@@ -91,26 +108,33 @@ def _select_channel(tex, channel, mat_id):
 
 
 def apply_material_maps(scene: SceneArrays, surf: Surface, tangent4, valid) -> Surface:
-    """The maps after the albedo's: the tangent-space normal map
-    (fetch_normal + get_normal_from_map, scene_descriptor_set.glsl:165-196),
-    roughness and metallic from their selected channels with the 0.1
-    roughness floor (:200-218), and the emissive map times its factor
-    (:222-228). tangent4: (..., 4) [tangent.xyz, bitangent sign]; valid:
-    the hits. Returns `surf` itself when the scene has no atlas;
-    a map no material uses is not sampled."""
-    mats = scene.materials
-    if scene.atlas is None or mats.normal_tex is None:
+    """The material maps, inside the span ``material``: albedo *= the
+    albedo map's texel (glTF factor x texture; reference fetch_albedo,
+    scene_descriptor_set.glsl:180-196), the tangent-space normal map
+    (fetch_normal + get_normal_from_map, :165-196), roughness and metallic
+    from their selected channels with the 0.1 roughness floor (:200-218),
+    and the emissive map times its factor (:222-228). tangent4: (..., 4)
+    [tangent.xyz, bitangent sign]; valid: the hits. Returns `surf` itself
+    when the scene has no atlas; a map no material uses is not sampled."""
+    names = _maps_to_sample(scene)
+    if not names:
         return surf
-    mat_id, uv = surf.mat_id, surf.uv
-    normal, roughness = surf.normal, surf.roughness
+    with profiler.span("material"):
+        return _apply_maps(scene, surf, tangent4, valid, names)
+
+
+def _apply_maps(scene: SceneArrays, surf: Surface, tangent4, valid, names) -> Surface:
+    mats = scene.materials
+    mat_id = surf.mat_id
+    albedo, normal, roughness = surf.albedo, surf.normal, surf.roughness
     metallic, emissive = surf.metallic, surf.emissive
+    maps = _sample_maps(scene, names, mat_id, surf.uv, valid)
 
-    def sample(col):
-        idx = _mat_int_col(col, mat_id)
-        return idx, sample_atlas(scene.atlas, idx, uv, valid=valid)
+    if "albedo_tex" in maps:
+        albedo = albedo * maps["albedo_tex"][1][..., :3]
 
-    if "normal_tex" in mats.maps:
-        n_idx, tex = sample(mats.normal_tex)
+    if "normal_tex" in maps:
+        n_idx, tex = maps["normal_tex"]
         tn = tex[..., :3] * 2.0 - 1.0
         # re-orthogonalize the tangent against the interpolated normal
         t = tangent4[..., :3]
@@ -119,22 +143,22 @@ def apply_material_maps(scene: SceneArrays, surf: Surface, tangent4, valid) -> S
         mapped = normalize3(tn[..., 0:1] * t + tn[..., 1:2] * b + tn[..., 2:3] * normal)
         normal = torch.where(((n_idx >= 0) & valid)[..., None], mapped, normal)
 
-    if "roughness_tex" in mats.maps:
-        r_idx, tex = sample(mats.roughness_tex)
+    if "roughness_tex" in maps:
+        r_idx, tex = maps["roughness_tex"]
         r_tex = _select_channel(tex, mats.roughness_channel, mat_id)
         roughness = torch.where((r_idx >= 0) & valid, torch.clamp(r_tex, min=0.1), roughness)
 
-    if "metallic_tex" in mats.maps:
-        m_idx, tex = sample(mats.metallic_tex)
+    if "metallic_tex" in maps:
+        m_idx, tex = maps["metallic_tex"]
         m_tex = _select_channel(tex, mats.metallic_channel, mat_id)
         metallic = torch.where((m_idx >= 0) & valid, m_tex, metallic)
 
-    if "emissive_tex" in mats.maps:
-        e_idx, tex = sample(mats.emissive_tex)
+    if "emissive_tex" in maps:
+        e_idx, tex = maps["emissive_tex"]
         emissive = torch.where(((e_idx >= 0) & valid)[..., None], emissive * tex[..., :3],
                                emissive)
 
-    return dataclasses.replace(surf, normal=normal, roughness=roughness,
+    return dataclasses.replace(surf, albedo=albedo, normal=normal, roughness=roughness,
                                metallic=metallic, emissive=emissive)
 
 
@@ -156,7 +180,6 @@ def fetch_surface(scene: SceneArrays, origin, direction, hit: Hit) -> Surface:
     normal, geo_n, frontface = _orient(normal, geo_n, direction)
     mat_id = scene.tri_mat[tid]
     albedo, roughness, metallic, emissive = _materials(scene, mat_id)
-    albedo = _apply_albedo_texture(scene, albedo, mat_id, uv, hit.valid)
     surf = Surface(
         position=position, normal=normal, geo_normal=geo_n, uv=uv,
         albedo=albedo, roughness=roughness, metallic=metallic,

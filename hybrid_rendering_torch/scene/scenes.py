@@ -2,12 +2,16 @@
 
 Same geometry, materials, lights and cameras as
 ``hybrid_rendering_tpu/scene/scenes.py``, all seven of its scenes, built
-from the same seeds so that both packages give equal arrays. An unknown
-name raises ``KeyError``.
+from the same seeds so that both packages give equal arrays. The port adds
+one deployment of its own: ``sponza_pbr``, ``sponza_scan``'s hall with the
+textured materials of the public PBR Sponza (and ``sponza_pbr_small``, the
+same at 64² maps). An unknown name raises ``KeyError``.
 
 Every factory returns (SceneArrays on the CPU, default Light, camera kwargs).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -235,6 +239,76 @@ def sponza_hi(use_bvh: bool = True):
     return scene, light, cam
 
 
+def _sponza_scan_hall():
+    """The hall of ``sponza_scan`` in the order it is built: (part, k, mesh,
+    transform, uv repeats) for the k-th object of each part (``floor``,
+    ``wall``, ``end_wall``, ``column``, ``entablature``, ``drape``,
+    ``boulder``). The repeats scale the mesh's 0-1 UVs so that a map
+    repeats about every 2 m of surface: two numbers, or one pair a vertex
+    (a box's faces differ)."""
+    rx = rotation_x(np.pi / 2)
+
+    # floor + relief walls: irregular Delaunay sheets, value-noise relief
+    yield ("floor", 0, prim.displace(prim.irregular_grid(24000, 36.0, 18.0, seed=21),
+                                     0.06, seed=11), None, (18.0, 9.0))
+    for k, (s, z, rot) in enumerate(((22, -9.0, rx), (23, 9.0, rotation_x(-np.pi / 2)))):
+        wall = prim.displace(prim.irregular_grid(13000, 36.0, 8.0, seed=s),
+                             0.1, seed=s + 10)
+        yield "wall", k, wall, _compose(translation(0, 4.0, z), rot), (18.0, 4.0)
+    for k, (s, x) in enumerate(((24, -18.0), (25, 18.0))):
+        wall = prim.displace(prim.irregular_grid(3000, 18.0, 8.0, seed=s),
+                             0.05, seed=s + 10)
+        m = _compose(translation(x, 4.0, 0.0),
+                     _compose(rotation_y(np.pi / 2), rx))
+        yield "end_wall", k, wall, m, (9.0, 4.0)
+
+    # 14 unique fluted columns + entablatures
+    for k, (z, i) in enumerate(
+            (z, i) for z in (-6.0, 6.0) for i in range(7)):
+        x = -15.0 + i * 5.0
+        col = prim.scanify(
+            prim.displace(prim.cylinder(0.5, 6.0, 72, stacks=24), 0.04,
+                          seed=40 + k),
+            seed=60 + k, jitter=0.25, collapse_frac=0.04)
+        yield "column", k, col, translation(x, 3.0, z), (2.0, 3.0)
+    # a face's repeats: +-z faces span x and y, +-x faces z and y, +-y x and z
+    box_repeats = np.repeat(np.asarray([(18.0, 0.5), (18.0, 0.5), (1.0, 0.5), (1.0, 0.5),
+                                        (18.0, 1.0), (18.0, 1.0)]), 4, axis=0)
+    for k, z in enumerate((-6.0, 6.0)):
+        yield ("entablature", k, prim.box(36.0, 1.0, 2.0), translation(0, 6.5, z),
+               box_repeats)
+
+    # 3 unique folded drapes
+    for k, x in enumerate((-8.0, 0.0, 8.0)):
+        cloth = prim.scanify(
+            prim.displace(prim.grid_mesh(96, 64, 3.0, 2.5), 0.22,
+                          seed=80 + k),
+            seed=90 + k, jitter=0.3, collapse_frac=0.05)
+        yield "drape", k, cloth, _compose(translation(x, 4.5, -5.0), rx), (1.5, 1.25)
+
+    # rubble field: 60 topologically unique boulders
+    rs = np.random.RandomState(7)
+    for k in range(60):
+        x = rs.uniform(-16.0, 16.0)
+        z = rs.uniform(-4.5, 4.5)
+        s = rs.uniform(0.3, 0.9)
+        boulder = prim.scanify(
+            prim.displace(prim.uv_sphere(1.0, 24, 40), 0.25, seed=100 + k),
+            seed=200 + k, jitter=0.35, collapse_frac=0.06)
+        m = _compose(translation(x, s * 0.8, z), scaling(s),
+                     rotation_y(rs.uniform(0, 2 * np.pi)))
+        # a whole number of repeats around, so that the seam meets itself
+        yield "boulder", k, boulder, m, (max(1.0, round(np.pi * s)), np.pi * s / 2.0)
+
+
+def _hall_light_and_camera():
+    light = Light.directional(
+        direction=(0.15, 0.95, 0.1), color=(1.0, 0.97, 0.9), intensity=3.5,
+        radius=0.06,
+    )
+    return light, dict(eye=(-13.0, 3.0, 0.5), target=(10.0, 3.5, -0.5))
+
+
 def sponza_scan(use_bvh: bool = True):
     """Scan-topology hero scene (~250k triangles, every object unique).
 
@@ -252,66 +326,44 @@ def sponza_scan(use_bvh: bool = True):
     floor = b.add_material(MaterialDef(albedo=(0.6, 0.58, 0.55), roughness=0.7))
     drape = b.add_material(MaterialDef(albedo=(0.55, 0.12, 0.10), roughness=0.95))
     rock = b.add_material(MaterialDef(albedo=(0.45, 0.42, 0.38), roughness=0.9))
-
-    rx = rotation_x(np.pi / 2)
-
-    # floor + relief walls: irregular Delaunay sheets, value-noise relief
-    b.add_instance(
-        prim.displace(prim.irregular_grid(24000, 36.0, 18.0, seed=21),
-                      0.06, seed=11), floor)
-    for s, z, rot in ((22, -9.0, rx), (23, 9.0, rotation_x(-np.pi / 2))):
-        wall = prim.displace(prim.irregular_grid(13000, 36.0, 8.0, seed=s),
-                             0.1, seed=s + 10)
-        b.add_instance(wall, stone, _compose(translation(0, 4.0, z), rot))
-    for s, x, rot in ((24, -18.0, None), (25, 18.0, None)):
-        wall = prim.displace(prim.irregular_grid(3000, 18.0, 8.0, seed=s),
-                             0.05, seed=s + 10)
-        m = _compose(translation(x, 4.0, 0.0),
-                     _compose(rotation_y(np.pi / 2), rx))
-        b.add_instance(wall, stone, m)
-
-    # 14 unique fluted columns + entablatures
-    for k, (z, i) in enumerate(
-            (z, i) for z in (-6.0, 6.0) for i in range(7)):
-        x = -15.0 + i * 5.0
-        col = prim.scanify(
-            prim.displace(prim.cylinder(0.5, 6.0, 72, stacks=24), 0.04,
-                          seed=40 + k),
-            seed=60 + k, jitter=0.25, collapse_frac=0.04)
-        b.add_instance(col, stone, translation(x, 3.0, z))
-    for z in (-6.0, 6.0):
-        b.add_instance(prim.box(36.0, 1.0, 2.0), stone,
-                       translation(0, 6.5, z))
-
-    # 3 unique folded drapes
-    for k, x in enumerate((-8.0, 0.0, 8.0)):
-        cloth = prim.scanify(
-            prim.displace(prim.grid_mesh(96, 64, 3.0, 2.5), 0.22,
-                          seed=80 + k),
-            seed=90 + k, jitter=0.3, collapse_frac=0.05)
-        b.add_instance(cloth, drape,
-                       _compose(translation(x, 4.5, -5.0), rx))
-
-    # rubble field: 60 topologically unique boulders
-    rs = np.random.RandomState(7)
-    for k in range(60):
-        x = rs.uniform(-16.0, 16.0)
-        z = rs.uniform(-4.5, 4.5)
-        s = rs.uniform(0.3, 0.9)
-        boulder = prim.scanify(
-            prim.displace(prim.uv_sphere(1.0, 24, 40), 0.25, seed=100 + k),
-            seed=200 + k, jitter=0.35, collapse_frac=0.06)
-        m = _compose(translation(x, s * 0.8, z), scaling(s),
-                     rotation_y(rs.uniform(0, 2 * np.pi)))
-        b.add_instance(boulder, rock, m)
-
+    material = {"floor": floor, "wall": stone, "end_wall": stone, "column": stone,
+                "entablature": stone, "drape": drape, "boulder": rock}
+    for part, _, mesh, m, _ in _sponza_scan_hall():
+        b.add_instance(mesh, material[part], m)
     scene = b.build(use_bvh=use_bvh)
-    light = Light.directional(
-        direction=(0.15, 0.95, 0.1), color=(1.0, 0.97, 0.9), intensity=3.5,
-        radius=0.06,
-    )
-    cam = dict(eye=(-13.0, 3.0, 0.5), target=(10.0, 3.5, -0.5))
+    light, cam = _hall_light_and_camera()
     return scene, light, cam
+
+
+def sponza_pbr(use_bvh: bool = True, map_size: int = 1024):
+    """``sponza_scan``'s hall, the same triangles and tree, with the
+    textured materials of the public PBR Sponza (Khronos glTF-Sample-Models
+    2.0/Sponza): 24 materials, each with a base-colour map, a tangent-space
+    normal map and a metallic-roughness map packed as glTF packs it (G
+    roughness, B metallic), 72 maps of `map_size`² from
+    ``pbr_maps.material_maps``. Three column pairs carry bronze bands, so
+    part of their maps is metal. UVs repeat a map about every 2 m, and the
+    tangents follow them."""
+    from hybrid_rendering_torch.scene import pbr_maps
+
+    b = SceneBuilder()
+    for k in range(len(pbr_maps.MATERIALS)):
+        albedo, normal, mr = (b.add_texture(img) for img in pbr_maps.material_maps(k, map_size))
+        b.add_material(MaterialDef(albedo=(1.0, 1.0, 1.0), roughness=1.0, metallic=0.0,
+                                   albedo_tex=albedo, normal_tex=normal, roughness_tex=mr,
+                                   metallic_tex=mr, roughness_channel=1, metallic_channel=2))
+    for part, k, mesh, m, repeats in _sponza_scan_hall():
+        first, n = pbr_maps.GROUPS[part]
+        mesh = dataclasses.replace(mesh, uvs=mesh.uvs * np.asarray(repeats, np.float32))
+        b.add_instance(mesh, first + k % n, m)
+    scene = b.build(use_bvh=use_bvh)
+    light, cam = _hall_light_and_camera()
+    return scene, light, cam
+
+
+def sponza_pbr_small(use_bvh: bool = True):
+    """``sponza_pbr`` with 64² maps, for tests on the CPU."""
+    return sponza_pbr(use_bvh=use_bvh, map_size=64)
 
 
 FACTORIES = {
@@ -322,6 +374,8 @@ FACTORIES = {
     "sponza": sponza,
     "sponza_hi": sponza_hi,
     "sponza_scan": sponza_scan,
+    "sponza_pbr": sponza_pbr,
+    "sponza_pbr_small": sponza_pbr_small,
 }
 
 

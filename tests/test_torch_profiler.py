@@ -8,7 +8,11 @@ CPU, at 32x24 on the tiny scene of ``entry_torch``:
   of 2 W x H);
 - off, no span opens a ``torch.profiler.record_function`` range and
   nothing is recorded; under a torch.profiler session the spans are on;
-- spans nest per thread, and a sharded tracer counts a ray once."""
+- spans nest per thread, and a sharded tracer counts a ray once;
+- on a textured scene the maps are sampled inside a span ``material``
+  under each surface fetch (the G-buffer's, DDGI's probe hits, the
+  reflection hits), whose counter ``material_samples`` holds four samples
+  a lane fetched; an untextured frame has neither."""
 import threading
 
 import pytest
@@ -143,6 +147,9 @@ def test_frame_and_sample_span_trees_and_rays(tiny, tracing):
     }
     assert spans["render_frame/ddgi.update/shade/direct_light/visibility"]["calls"] == 1
     assert sum(rays.values()) == sum(frame_counts)
+    # an untextured scene samples no map: no span, no counter
+    assert "material_samples" not in rec["counters"]
+    assert "material_samples" not in pt_rec["counters"]
 
     pt_spans, pt_rays = pt_rec["spans"], pt_rec["counters"]["rays"]
     assert set(pt_spans) == _paths(SAMPLE_TREE)
@@ -155,6 +162,55 @@ def test_frame_and_sample_span_trees_and_rays(tiny, tracing):
     assert sum(pt_rays.values()) == 9 * W * H
     text = profiler.table(rec)
     assert "reflections" in text and f"{W * H:10.0f}" in text
+
+
+@pytest.fixture(scope="module")
+def textured(tiny):
+    """The tiny scene's renderer settings on a textured plane and box: two
+    materials of ``sponza_pbr``'s maps at 16², with one frame rendered
+    with tracing off."""
+    from hybrid_rendering_torch.scene import pbr_maps
+    from hybrid_rendering_torch.scene import primitives as prim
+    from hybrid_rendering_torch.scene.build import MaterialDef, SceneBuilder, translation
+
+    r0, _, light = tiny
+    b = SceneBuilder()
+    mats = []
+    for k in (0, 6):  # flagstones; a column with bronze bands
+        albedo, normal, mr = (b.add_texture(img) for img in pbr_maps.material_maps(k, 16))
+        mats.append(b.add_material(MaterialDef(albedo_tex=albedo, normal_tex=normal,
+                                               roughness_tex=mr, metallic_tex=mr)))
+    b.add_instance(prim.plane(20.0, 20.0), mats[0])
+    b.add_instance(prim.box(1.0, 1.0, 1.0), mats[1], translation(0, 0.5, 0))
+    r = HybridRenderer(b.build(use_bvh=True), r0.config, r0.sky_radiance_fn, device="cpu")
+    state = r.create_state()
+    _, state = r.render_frame(state, r.make_camera((4.0, 3.0, 6.0), (0.0, 0.5, 0.0), 0), light)
+    return r, state, light
+
+
+def test_material_span_and_samples_at_every_fetch(textured, tracing):
+    r, state, light = textured
+    cam = r.make_camera((4.2, 3.0, 6.0), (0.0, 0.5, 0.0), 1)
+    r.render_frame(state, cam, light)
+    rec = profiler.collect()
+    fetches = ("render_frame/gbuffer/closest", "render_frame/ddgi.update/trace/closest",
+               "render_frame/reflections/ray_trace/closest")
+    material = {p for p in rec["spans"] if p.endswith("/material")}
+    assert material == {f"{p}/material" for p in fetches}
+    assert set(rec["spans"]) - material == _paths(FRAME_TREE)
+    for p in fetches:
+        assert rec["spans"][f"{p}/material"]["calls"] == 1
+        assert rec["spans"][f"{p}/material"]["host_s"] <= rec["spans"][p]["host_s"]
+    # albedo, normal, roughness and metallic: four samples a lane fetched
+    rays = rec["counters"]["rays"]
+    assert rec["counters"]["material_samples"] == {f"{p}/material": 4 * rays[p] for p in fetches}
+    sample = path_tracer.trace_sample(r.scene, r.closest_surface_fn, r.visibility_fn, cam,
+                                      light, r.sky_radiance_fn, W, H, 0,
+                                      tcfg.PathTracerConfig(max_ray_bounces=2))
+    assert bool(torch.isfinite(sample).all())
+    pt = profiler.collect()
+    assert pt["counters"]["material_samples"] == {
+        "trace_sample/pt.closest/closest/material": 4 * 2 * W * H}
 
 
 def test_tracing_off_opens_no_range(tiny, monkeypatch):
