@@ -16,6 +16,9 @@
     python3 chip_smoke.py --shade-only     (shade_phase alone: K7's checks,
                                             edge cases, times and the
                                             frames' waits; no result line)
+    python3 chip_smoke.py --temporal-only  (temporal_phase alone: K8's
+                                            checks, edge cases and times;
+                                            no result line)
     python3 chip_smoke.py --profiler-effect  (K4 counted by short
                                             torch.profiler sessions before
                                             and after profiled runs; the
@@ -97,7 +100,13 @@ synchronizing call, K7a and K7b timed beside their byte bounds with the
 kernels a call puts on the card; its edge cases (point and spot lights,
 hard shadows, Preetham and constant skies, masks, 1 to 4,099 points); and
 the synchronizing calls of a hybrid frame and a path-traced sample by
-repo line. Then it times the bench frame
+repo line. Then K8 (``temporal_phase``, in a process of its own,
+``--temporal-only``): the three denoisers' temporal_accumulation calls of
+a frame of the bench scene and of the hero, each output bit for bit
+against the plain stage, one launch a call, one kernel on the card and no
+synchronizing call, K8 timed beside its byte bound; and its edge cases
+(the frames of tests/test_torch_temporal.py at five sizes, the camera
+still, at the cap's threshold and moving). Then it times the bench frame
 pass by pass and under torch.profiler (K4 must put one kernel on the card
 a call there). Last, ``bench_torch.py`` runs in a subprocess
 with a 300 s budget,
@@ -185,7 +194,7 @@ K6_K1_MIN_AGREE = 0.999
 T_MIN = 1e-3  # the tracers' t_min
 # kernels whose registers, spills and shared memory are printed from nvcc's log
 PTXAS_KERNELS = ("closest_kernel", "anyhit", "atrous_tile", "blur_tile", "ddgi_sample_kernel",
-                 "k6_", "k6p_", "shade_")
+                 "k6_", "k6p_", "shade_", "temporal_kernel")
 # the launch plans of K6 and K6′ held to the plain version on their edge
 # cases beside the wrapper's own choice: (rays a thread, parts of the split)
 K6_EDGE_PLANS = ((1, 1), (2, 1), (1, 8), (2, 8))
@@ -1392,6 +1401,9 @@ def slice_phase(dev, counters):
           f"K3: {launches['K3']} launches, expected {k3_frame} a frame")
     for k in ("K6", "K6′"):
         check(launches[k] == 0, f"{k} was launched on the BVH path")
+    # K8: one launch at each denoiser's temporal stage
+    check(launches["K8"] == 3 * (TIMED_FRAMES + 1),
+          f"K8: {launches['K8']} launches, expected 3 a frame")
     del out
 
     r = without_gi(r)
@@ -2931,12 +2943,183 @@ def shade_phase(dev):
     return {"K7": (err, ms, plain_ms, bnd, by)}
 
 
+# ---------------------------------------------------------------------------
+# K8: the denoisers' temporal stage
+# ---------------------------------------------------------------------------
+
+TEMPORAL_WARM = 3  # frames rendered before the recorded one
+TEMPORAL_SITES = ("shadows", "ao", "reflections")
+TEMPORAL_EDGE_SIZES = ((37, 70), (9, 5), (1, 1), (8, 32), (67, 129))
+
+
+def k8_bytes(site, n):
+    """The bytes K8 must move for `n` pixels of `site`, each once: both
+    frames' G-buffer planes (position, normal, mesh id, motion; the
+    previous position, normal, mesh id: 64 bytes), the pass's own inputs
+    and its outputs."""
+    own = {"shadows": 20 + 20,  # history, moments, length, samples; vis., variance, moments, length
+           "ao": 12 + 8,  # history, length, samples; AO, length
+           "reflections": 44 + 28}  # ray length, curvature, history, moments, length, colour; outputs
+    return n * (64 + own[site])
+
+
+def temporal_modules():
+    from hybrid_rendering_torch.models import ao, reflections, shadows
+
+    return {"shadows": shadows, "ao": ao, "reflections": reflections}
+
+
+def temporal_calls(r, light, camkw):
+    """The arguments of the three temporal_accumulation calls of a frame
+    of `r`: TEMPORAL_WARM frames with the eye sliding EYE_STEP along x a
+    frame, then the next frame's calls, recorded. {site: (args, kw)}."""
+    mods = temporal_modules()
+    saved = {k: m.temporal_accumulation for k, m in mods.items()}
+    recs = {k: recorder(fn) for k, fn in saved.items()}
+    state, prev = r.create_state(), None
+    for f in range(TEMPORAL_WARM + 1):
+        eye = tuple(np.asarray(camkw["eye"]) + [EYE_STEP * f, 0.0, 0.0])
+        cam = r.make_camera(eye, camkw["target"], f, prev_view_proj=prev)
+        prev = cam.view_proj
+        try:
+            if f == TEMPORAL_WARM:
+                for k, m in mods.items():
+                    m.temporal_accumulation = recs[k]
+            _, state = r.render_frame(state, cam, light)
+        finally:
+            for k, m in mods.items():
+                m.temporal_accumulation = saved[k]
+    return {k: rec.calls[0] for k, rec in recs.items()}
+
+
+def check_k8(label, site, call, fails):
+    """K8 at one temporal_accumulation call: every output against
+    temporal_accumulation_plain on the same CUDA tensors bit for bit, one
+    K8 launch and no synchronizing call a call, one kernel on the card;
+    K8's ms one by one and queued beside its byte bound and the plain
+    stage's ms. Failures are appended to `fails`. Returns (ms, queued ms,
+    plain ms, bound ms)."""
+    from hybrid_rendering_torch.ops import temporal
+
+    mod = temporal_modules()[site]
+    args, kw = call
+    counter = getattr(temporal, site)
+    before = counter.launches
+    got = mod.temporal_accumulation(*args, **kw)
+    launched = counter.launches - before
+    ref, plain_ms = wall_ms(lambda: mod.temporal_accumulation_plain(*args, **kw))
+    same = True
+    for i, (g, w) in enumerate(zip(got, ref)):
+        if not bits_equal(g, w):
+            same = False
+            off = (g != w) & ~(torch.isnan(g) & torch.isnan(w))
+            d = float((g - w)[off].abs().max()) if bool(off.any()) else 0.0
+            fails.append(f"K8 {label} {site}: output {i} differs from the plain stage at "
+                         f"{int(off.sum())} of {g.numel()} values, max |d| {d}")
+    if launched != 1:
+        fails.append(f"K8 {label} {site}: {launched} launches a call")
+    waits = synchronizing_calls(lambda: mod.temporal_accumulation(*args, **kw))
+    if waits:
+        fails.append(f"K8 {label} {site}: {len(waits)} synchronizing calls: {waits}")
+    gb = args[2] if site == "reflections" else args[1]
+    n = gb.depth.numel()
+    print(f"K8 {label} {site}: {tuple(gb.depth.shape)} pixels, {len(got)} outputs "
+          f"{'bit for bit' if same else 'DIFFER'} against the plain stage; launches a call "
+          f"{launched}; synchronizing calls {len(waits)}")
+    ms, q = (cuda_ms(lambda: mod.temporal_accumulation(*args, **kw), 20, queued=qq)
+             for qq in (False, True))
+    nbytes = k8_bytes(site, n)
+    bnd = bound(nbytes, 0)[0]
+    rows = kernel_rows(lambda: mod.temporal_accumulation(*args, **kw))
+    plain_rows = kernel_rows(lambda: mod.temporal_accumulation_plain(*args, **kw))
+    if sum(rows.values()) != 1:
+        fails.append(f"K8 {label} {site}: {dict(rows)} kernels on the card a call")
+    print(f"K8 {label} {site}: {ms:.4f} ms ({q:.4f} ms queued), bound {bnd:.4f} ms "
+          f"({nbytes} bytes), share {bnd / ms:.1%} ({bnd / q:.1%} queued); plain stage "
+          f"{plain_ms:.3f} ms; device kernels a call {sum(rows.values())} ({dict(rows)}), "
+          f"plain stage {sum(plain_rows.values())}")
+    return ms, q, plain_ms, bnd
+
+
+def k8_edge_cases(dev, fails):
+    """K8 against the plain stage on the card on the frames of
+    tests/test_torch_temporal.py (every branch of the reprojection; tiles
+    cut by the frame, frames smaller than a tile or the box's halo), at
+    TEMPORAL_EDGE_SIZES, two seeds, the camera still, at the cap's
+    threshold and moving."""
+    import importlib.util
+
+    # by its path: a package named "tests" may be installed
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_temporal", os.path.join(ROOT, "tests", "test_torch_temporal.py"))
+    frames = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(frames)
+    frame_inputs, site_calls = frames.frame_inputs, frames.site_calls
+    cases = 0
+    for (h, w), seed, delta in itertools.product(TEMPORAL_EDGE_SIZES, (3, 11),
+                                                 (0.0, 1e-5, 0.3)):
+        calls = site_calls(frame_inputs(h, w, seed, delta, device=dev))
+        for site in TEMPORAL_SITES:
+            mod = temporal_modules()[site]
+            got = mod.temporal_accumulation(*calls[site])
+            ref = mod.temporal_accumulation_plain(*calls[site])
+            for i, (g, r) in enumerate(zip(got, ref)):
+                if not bits_equal(g, r):
+                    fails.append(f"K8 edge {site} {h}x{w} seed {seed} camera_delta {delta}: "
+                                 f"output {i} differs at {int((g != r).sum())} values")
+            cases += 1
+    print(f"[edge] K8: {cases} cases (3 sites x {len(TEMPORAL_EDGE_SIZES)} sizes x 2 seeds x "
+          f"3 camera moves)")
+
+
+def temporal_subprocess():
+    """temporal_phase in a fresh process (``--temporal-only``), its lines
+    echoed (it counts kernels in short torch.profiler sessions, as
+    shade_subprocess does). Returns K8's row of the kernel table, its last
+    line."""
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--temporal-only"],
+                          capture_output=True, text=True, timeout=900, cwd=ROOT)
+    print("\n".join(l for l in proc.stdout.splitlines()
+                    if l.startswith(("K8", "[edge] K8", "FAIL"))))
+    check(proc.returncode == 0, f"chip_smoke.py --temporal-only exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    return {k: tuple(v) for k, v in json.loads(proc.stdout.splitlines()[-1]).items()}
+
+
+def temporal_phase(dev):
+    """K8 at the three temporal stages of a frame of the bench scene
+    (shadows_test) and the hero (sponza_scan), 1920x1080 (``check_k8``,
+    each timed), and its edge cases. Returns {"K8": (max abs err, ms,
+    plain_ms, bound_ms, bound_by)}, the bench frame's three sites summed,
+    for the kernel table."""
+    fails, timed = [], {}
+    for scene in (SCENE, HERO_SCENE):
+        r, light, camkw = bench_torch._build(scene, W, H, device=dev)
+        calls = temporal_calls(r, light, camkw)
+        for site in TEMPORAL_SITES:
+            t = check_k8(scene, site, calls[site], fails)
+            if scene == SCENE:
+                timed[site] = t
+        del r, calls
+        torch.cuda.empty_cache()
+    k8_edge_cases(dev, fails)
+    for f in fails:
+        print("FAIL " + f)
+    check(not fails, f"K8: {len(fails)} check(s) failed")
+    ms, q, plain_ms, bnd = (sum(t[i] for t in timed.values()) for i in range(4))
+    print(f"K8 bench frame, three sites: {ms:.4f} ms ({q:.4f} ms queued), bound {bnd:.4f} ms, "
+          f"share {bnd / ms:.1%} ({bnd / q:.1%} queued); plain stages {plain_ms:.3f} ms")
+    return {"K8": (0.0, ms, plain_ms, bnd, "bytes")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on a GPU",
               file=sys.stderr)
         return 1
-    from hybrid_rendering_torch.ops import bvh, ddgi_sample, flashtrace, kernels, shade, stencil
+    from hybrid_rendering_torch.ops import (
+        bvh, ddgi_sample, flashtrace, kernels, shade, stencil, temporal)
     from hybrid_rendering_torch.scene import native
 
     dev = torch.device("cuda", 0)
@@ -2986,12 +3169,19 @@ def main() -> int:
         # prints no result line, its last line K7's row of the kernel table
         print(json.dumps(shade_phase(dev)))
         return 0
+    if "--temporal-only" in sys.argv[1:]:
+        # the K8 checks, edge cases and times alone: a short call for work
+        # on the denoisers' temporal stage, and the full run's K8 phase;
+        # prints no result line, its last line K8's row of the kernel table
+        print(json.dumps(temporal_phase(dev)))
+        return 0
     counters = {"K1": (bvh.closest_hit_attrs,), "K2": (bvh.visibility,),
                 "K3": (stencil.atrous_chain,), "K4": (stencil.bilateral_blur,),
                 "K5": (ddgi_sample.sample_irradiance,),
                 "K6": (flashtrace.flash_closest_hit, flashtrace.flash_closest_hit_attrs),
                 "K6′": (flashtrace.flash_visibility,),
-                "K7": (shade.shade_rays, shade.shade_combine)}
+                "K7": (shade.shade_rays, shade.shade_combine),
+                "K8": (temporal.shadows, temporal.ao, temporal.reflections)}
     card = smi.stdout.strip().splitlines()[0]
     if "--apps-only" in sys.argv[1:]:
         # render_torch.py and viewer_torch.py alone: a short call for work
@@ -3043,6 +3233,8 @@ def main() -> int:
     # it in the process, so the frames above are timed before the first
     timed.update(shade_subprocess())
     t = lap("shade_phase", t)
+    timed.update(temporal_subprocess())
+    t = lap("temporal_phase", t)
     profile_phase(dev, launches["K4"] / (TIMED_FRAMES + 1))
     t = lap("profile_phase", t)
     bench_phase()
@@ -3057,6 +3249,7 @@ def main() -> int:
         "K6": ("flashtrace.cu", "hybrid_rendering_tpu/ops/pallas/flashtrace.py:411"),
         "K6′": ("flashtrace.cu", "hybrid_rendering_tpu/ops/pallas/flashtrace.py:1742"),
         "K7": ("shade.cu", None),  # no TPU kernel: XLA fuses the JAX package's direct light
+        "K8": ("temporal.cu", None),  # no TPU kernel: XLA fuses the temporal stage
     }
     # no single PyTorch call computes any of these functions: library_ms
     # is null for every row

@@ -10,7 +10,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from hybrid_rendering_torch.config import AOConfig
-from hybrid_rendering_torch.ops import bluenoise, brdf as brdf_ops, filters, stencil
+from hybrid_rendering_torch.ops import bluenoise, brdf as brdf_ops, filters, kernels
+from hybrid_rendering_torch.ops import stencil, temporal
 from hybrid_rendering_torch.ops.reprojection import reproject
 from hybrid_rendering_torch.types import GBuffer
 from hybrid_rendering_torch.utils import profiler
@@ -56,7 +57,17 @@ def ray_trace(visibility_fn: Callable, gb: GBuffer, frame_index: int, cfg: AOCon
 
 def temporal_accumulation(raw, gb: GBuffer, prev_gb: GBuffer, state: AOState, cfg: AOConfig):
     """Single-channel reprojection without moments
-    (ao_denoise_reprojection.comp:222-259)."""
+    (ao_denoise_reprojection.comp:222-259): ``temporal_accumulation_plain``
+    for CPU tensors, K8 (ops/temporal.py) for CUDA tensors. Returns (ao,
+    history_length)."""
+    if kernels.on_cpu(raw):
+        return temporal_accumulation_plain(raw, gb, prev_gb, state, cfg)
+    return temporal.ao(raw, gb, prev_gb, state, cfg)
+
+
+def temporal_accumulation_plain(raw, gb: GBuffer, prev_gb: GBuffer, state: AOState,
+                                cfg: AOConfig):
+    """The temporal pass in plain PyTorch, K8's twin."""
     geom = gb.mesh_id >= 0
     rep = reproject(gb, prev_gb, state.history, history_length=state.history_length)
     success = rep.valid & geom

@@ -25,7 +25,7 @@ import torch
 
 from hybrid_rendering_torch.config import ReflectionsConfig
 from hybrid_rendering_torch.models.gbuffer import nearest_downsample
-from hybrid_rendering_torch.ops import bluenoise, filters, stencil
+from hybrid_rendering_torch.ops import bluenoise, filters, kernels, stencil, temporal
 from hybrid_rendering_torch.ops import brdf as brdf_ops
 from hybrid_rendering_torch.ops import rng as rng_ops
 from hybrid_rendering_torch.ops.lighting import direct_lighting
@@ -162,7 +162,18 @@ def temporal_accumulation(raw, ray_length, gb: GBuffer, prev_gb: GBuffer, camera
     """Reflections temporal pass (reflections_denoise_reprojection.comp):
     virtual-point reprojection, AABB clip, motion-capped accumulation.
     camera_delta is the frame-to-frame camera movement, a () tensor.
-    Returns (color, variance, moments, history_length)."""
+    ``temporal_accumulation_plain`` for CPU tensors, K8 (ops/temporal.py)
+    for CUDA tensors. Returns (color, variance, moments, history_length)."""
+    if kernels.on_cpu(raw):
+        return temporal_accumulation_plain(raw, ray_length, gb, prev_gb, camera, camera_delta,
+                                           state, cfg)
+    return temporal.reflections(raw, ray_length, gb, prev_gb, camera, camera_delta, state, cfg)
+
+
+def temporal_accumulation_plain(raw, ray_length, gb: GBuffer, prev_gb: GBuffer,
+                                camera: Camera, camera_delta, state: ReflectionsState,
+                                cfg: ReflectionsConfig):
+    """The temporal pass in plain PyTorch, K8's twin."""
     geom = gb.mesh_id >= 0
     H, W = gb.depth.shape
 

@@ -10,7 +10,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from hybrid_rendering_torch.config import ShadowsConfig
-from hybrid_rendering_torch.ops import bluenoise, filters, stencil
+from hybrid_rendering_torch.ops import bluenoise, filters, kernels, stencil, temporal
 from hybrid_rendering_torch.ops.lighting import fetch_light_properties
 from hybrid_rendering_torch.ops.reprojection import reproject
 from hybrid_rendering_torch.types import GBuffer, Light
@@ -68,8 +68,18 @@ def ray_trace(visibility_fn: Callable, gb: GBuffer, light: Light, frame_index: i
 
 def temporal_accumulation(raw, gb: GBuffer, prev_gb: GBuffer, state: ShadowsState,
                           cfg: ShadowsConfig):
-    """SVGF temporal pass (shadows_denoise_reprojection.comp:196-280).
-    Returns (visibility, variance, moments, history_length)."""
+    """SVGF temporal pass (shadows_denoise_reprojection.comp:196-280):
+    ``temporal_accumulation_plain`` for CPU tensors, K8 (ops/temporal.py)
+    for CUDA tensors. Returns (visibility, variance, moments,
+    history_length)."""
+    if kernels.on_cpu(raw):
+        return temporal_accumulation_plain(raw, gb, prev_gb, state, cfg)
+    return temporal.shadows(raw, gb, prev_gb, state, cfg)
+
+
+def temporal_accumulation_plain(raw, gb: GBuffer, prev_gb: GBuffer, state: ShadowsState,
+                                cfg: ShadowsConfig):
+    """The temporal pass in plain PyTorch, K8's twin."""
     geom = gb.mesh_id >= 0
     rep = reproject(gb, prev_gb, state.history, history_moments=state.moments,
                     history_length=state.history_length)

@@ -13,8 +13,8 @@ returns ``cudaGetLastError()`` and ``check`` raises if it is not 0.
 
 Each source has its own multiply-add flag (``_FMAD``). The default is
 ``-fmad=false``: no contraction, so a kernel rounds op by op like its plain
-PyTorch version (trace.cu, flashtrace.cu, ddgi_sample.cu, shade.cu: bit
-parity).
+PyTorch version (trace.cu, flashtrace.cu, ddgi_sample.cu, shade.cu,
+temporal.cu: bit parity).
 stencil.cu is built with ``-fmad=true``: K3 is bound by instruction rate
 and is held to a tolerance instead (K4 and K3's luma, in the same file,
 write their unfused operations out).
@@ -75,6 +75,9 @@ _SIGNATURES = {
     "hr_flash_visibility_blocks_per_sm": [_I],
     "hr_shade_rays": [_P, _P, _I, _F, _F, _F, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P, _P, _P],
     "hr_shade_combine": [_P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _I, _P, _P],
+    "hr_temporal_shadows": [_I, _I] + [_P] * 11 + [_F] * 4 + [_P] * 5,
+    "hr_temporal_ao": [_I, _I] + [_P] * 10 + [_F] * 2 + [_P] * 3,
+    "hr_temporal_reflections": [_I, _I] + [_P] * 16 + [_F] * 4 + [_P] * 5,
     "hr_noop": [_P],
 }
 
